@@ -46,8 +46,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet), for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 # The kernel's work is 32-bit integer compares and hashes on the CUDA
-# cores; the measurement guide's table has no int32 entry, so its
-# non-tensor float32 rate stands in for it.
+# cores; the data sheet lists no int32 rate, so its non-tensor float32
+# rate stands in for it.
 CORE_OPS_PER_S = 67e12
 
 
