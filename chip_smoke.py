@@ -12,16 +12,20 @@ JAX package.  Phases, each fatal on failure:
     memory and spills are printed;
  3. kernel vs plain: the CUDA kernel and its plain PyTorch version, on
     the card, on the same unit matrices (random ASCII, multilingual,
-    astral-plane, UNK-heavy, empty rows) at widths 7/15/31/127 with the
-    bert-shaped vocab; emit matrices and decoded compact vectors must be
-    equal (integers: tolerance exactly 0);
+    astral-plane, UNK-heavy, empty rows; a row count that ends in a
+    partial block) at widths 7/15/31/127 with the bert-shaped vocab; emit
+    matrices and decoded compact vectors must be equal (integers:
+    tolerance exactly 0), and a cap below the total must be detected with
+    the counts and the kept emit matrices intact;
  4. main path: the kernel's launch count is set to 0, then the fast engine
     encodes 10 MB en/ru/ja/zh corpora on the bert-shaped vocab through the
-    user entry points (ids must equal the native oracle) and every
-    tests/golden/*.npz stream (byte-identical); the count must be > 0 and
-    device_fallbacks 0;
- 5. numbers: the kernel and its plain version timed by CUDA events at the
-    en first chunk's bucket shapes, the kernel's bound, the 10 MB en
+    user entry points (ids must equal the native oracle), 3 MB of en on a
+    char-level vocab (past the compact cap: the full-emit fetch) and every
+    tests/golden/*.npz stream (byte-identical); the count must be > 0,
+    and device_fallbacks and verify_repairs 0;
+ 5. numbers: at the en first chunk's bucket shapes, the kernel and its
+    plain version are held equal (emit matrices and the decoded compact
+    vector) and timed by CUDA events; the kernel's bound, the 10 MB en
     encode rate (min and median of 5) with its stage breakdown, and one more such
     encode under torch.profiler: device time per kernel and the card's
     busy share of the wall time (--trace PATH also writes its trace).
@@ -118,8 +122,9 @@ def device_profile(fn, trace_path):
 
 
 # ---- phase 3 inputs ------------------------------------------------------
-def unit_matrices(width: int, words: list[str], rng, n: int = 2048) -> dict:
-    """Five int32[n, width] unit matrices (pad 32), from a fixed seed."""
+def unit_matrices(width: int, words: list[str], rng, n: int = 2061) -> dict:
+    """Five int32[n, width] unit matrices (pad 32), from a fixed seed.  n is
+    odd, so every width's last block of units is a partial one."""
     import numpy as np
 
     ascii_punct = [",", ".", "!", "-", "'", "(", ")", ";"]
@@ -228,7 +233,7 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.bench.corpus import make_corpus, make_vocab, make_vocab_bert
     from wordpiece_tpu_torch.core.length_tables import build_length_tables, load_length_tables
     from wordpiece_tpu_torch.core.vocab import parse_vocab
-    from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow
+    from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.ops.word_kernel import word_match_commit
     from wordpiece_tpu_torch.runtime import loader
@@ -286,13 +291,29 @@ def main(argv=None) -> int:
             plains.append(want.cpu().numpy())
         shapes = [tuple(c.shape) for c in cps]
         cap = sum(u * w for u, w in shapes)
-        fused = wk.word_match_commit_compact(cps, tables, cap=cap).cpu().numpy()
+        fused, _ = wk.word_match_commit_compact(cps, tables, cap=cap)
+        fused = fused.cpu().numpy()
         decoded = wk.decode_compact(fused, shapes, cap)
         for d, p in zip(decoded, plains):
             if not np.array_equal(d, p):
                 raise AssertionError(f"decoded compact != plain emits at width {width}")
-        emit_json({"phase": "compact_vs_plain", "width": width, "total": int(fused[0]),
-                   "equal": True})
+        # A cap below the total: the decode must report the overflow, the
+        # counts must stay whole, and the emit matrices the compact call
+        # keeps on the card (what the engine's full-emit fetch copies) must
+        # equal the plain ones.
+        total = int(fused[0])
+        short, kept = wk.word_match_commit_compact(cps, tables, cap=total // 2)
+        short = short.cpu().numpy()
+        n_rows = sum(u for u, _ in shapes)
+        if (int(short[0]) != total
+                or wk.decode_compact(short, shapes, total // 2) is not None
+                or not np.array_equal(short[1 : 1 + n_rows], fused[1 : 1 + n_rows])):
+            raise AssertionError(f"compact overflow not reported at width {width}")
+        for e, p in zip(kept, plains):
+            if not np.array_equal(e.cpu().numpy(), p):
+                raise AssertionError(f"kept emits != plain emits at width {width}")
+        emit_json({"phase": "compact_vs_plain", "width": width, "total": total,
+                   "equal": True, "overflow_cap": total // 2, "overflow_detected": True})
 
     # ---- 4. main path -----------------------------------------------------
     wk.word_match_commit_bucket.launches = 0
@@ -329,11 +350,35 @@ def main(argv=None) -> int:
         ok = got.shape == want.shape and np.array_equal(got, want)
         emit_json({"phase": "main_path", "corpus": f"{lang}_10MB", "vocab": "bert_28996",
                    "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
-                   "launches": main_stats[lang], "device_fallbacks": enc.device_fallbacks})
+                   "launches": main_stats[lang], "device_fallbacks": enc.device_fallbacks,
+                   "verify_repairs": enc.verify_repairs, "full_fetches": enc.full_fetches})
         if not ok:
             raise AssertionError(f"{lang}: ids differ from the native oracle")
-        if enc.device_fallbacks != 0:
-            raise AssertionError(f"{lang}: device_fallbacks={enc.device_fallbacks}")
+        if enc.device_fallbacks != 0 or enc.verify_repairs != 0:
+            raise AssertionError(f"{lang}: device_fallbacks={enc.device_fallbacks}, "
+                                 f"verify_repairs={enc.verify_repairs}")
+
+    # A char-level vocabulary: every unit emits one id per codepoint, so
+    # the first dispatch's total passes the compact cap and the engine
+    # fetches the full emit matrices from the card.
+    head = en[:3_000_000]
+    chars = sorted(set("".join(head.decode("utf-8", errors="ignore").split())))
+    char_vocab = parse_vocab(["[UNK]"] + chars + ["##" + c for c in chars])
+    enc = wpt.make_encoder(char_vocab, "fast", device="cuda")
+    got = enc.encode_bytes(head)
+    want = loader.VocabHandle(char_vocab).encode(loader.decode_utf8(head))
+    ok = np.array_equal(got, want)
+    emit_json({"phase": "main_path", "corpus": "en_3MB", "vocab": f"char_{char_vocab.size}",
+               "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
+               "device_fallbacks": enc.device_fallbacks, "verify_repairs": enc.verify_repairs,
+               "full_fetches": enc.full_fetches})
+    if not ok:
+        raise AssertionError("char vocab: ids differ from the native oracle")
+    if enc.full_fetches < 1:
+        raise AssertionError("char vocab: the compact cap never overflowed")
+    if enc.device_fallbacks != 0 or enc.verify_repairs != 0:
+        raise AssertionError(f"char vocab: device_fallbacks={enc.device_fallbacks}, "
+                             f"verify_repairs={enc.verify_repairs}")
 
     golden_files = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "golden_*.npz")))
     if not golden_files:
@@ -350,11 +395,13 @@ def main(argv=None) -> int:
         got = enc.encode_bytes(corpus)
         ok = got.dtype == np.int32 and np.array_equal(got, z["ids"].astype(np.int32))
         emit_json({"phase": "golden", "file": os.path.basename(path), "ids": int(got.shape[0]),
-                   "byte_identical": bool(ok), "device_fallbacks": enc.device_fallbacks})
+                   "byte_identical": bool(ok), "device_fallbacks": enc.device_fallbacks,
+                   "verify_repairs": enc.verify_repairs})
         if not ok or got.tobytes() != z["ids"].astype(np.int32).tobytes():
             raise AssertionError(f"{path}: ids differ from the reference stream")
-        if enc.device_fallbacks != 0:
-            raise AssertionError(f"{path}: device_fallbacks={enc.device_fallbacks}")
+        if enc.device_fallbacks != 0 or enc.verify_repairs != 0:
+            raise AssertionError(f"{path}: device_fallbacks={enc.device_fallbacks}, "
+                                 f"verify_repairs={enc.verify_repairs}")
     launches = wk.word_match_commit_bucket.launches
     emit_json({"phase": "main_path_launches", "word_match_commit": launches,
                "per_10MB": main_stats})
@@ -366,9 +413,21 @@ def main(argv=None) -> int:
     bucket_rows = []
     k_ms = p_ms = 0.0
     n_bytes = n_ops = 0
+    first_cps, first_plains = [], []
     for m in first:
         cp = torch.from_numpy(_narrow(m)).to(dev)
         width = m.shape[1]
+        # Held against the plain version at exactly these shapes first.
+        got = wk.word_match_commit_bucket(cp, tables)
+        want = word_match_commit(
+            cp, tables.k1, tables.k2, tables.tid, width=width, **tables.statics
+        )
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain at the main path's width-{width} bucket")
+        max_err = max(max_err, err)
+        first_cps.append(cp)
+        first_plains.append(want.cpu().numpy())
         km = cuda_ms(lambda: wk.word_match_commit_bucket(cp, tables), 200)
         pm = cuda_ms(
             lambda: word_match_commit(
@@ -378,11 +437,20 @@ def main(argv=None) -> int:
         )
         b, o = kernel_bytes_ops(cp, tables)
         bucket_rows.append({"width": width, "units": m.shape[0], "dtype": str(cp.dtype),
-                            "ms": km, "plain_ms": pm, "bytes": b, "ops": o})
+                            "ms": km, "plain_ms": pm, "bytes": b, "ops": o,
+                            "max_abs_err": err})
         k_ms += km
         p_ms += pm
         n_bytes += b
         n_ops += o
+    shapes = [tuple(c.shape) for c in first_cps]
+    cap = compact_cap(sum(u for u, _ in shapes))
+    fused, _ = wk.word_match_commit_compact(first_cps, tables, cap=cap)
+    decoded = wk.decode_compact(fused.cpu().numpy(), shapes, cap)
+    if decoded is None or not all(np.array_equal(d, p) for d, p in zip(decoded, first_plains)):
+        raise AssertionError("decoded compact != plain emits at the main path's shapes")
+    if not (k_ms > 0 and p_ms > 0 and n_bytes > 0 and n_ops > 0):
+        raise AssertionError("kernel_time: a time or a bound term was not measured")
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CORE_OPS_PER_S * 1e3
     emit_json({"phase": "kernel_time", "shapes": "en 10MB first chunk, every non-empty bucket",

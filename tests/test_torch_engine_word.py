@@ -192,19 +192,39 @@ def test_verify_emit_numpy_fallback(monkeypatch):
     mat[0, :3] = [ord("a"), ord("b"), ord("c")]
     mat[1, 0] = ord("x")
     emit = np.full((2, 7), -2, dtype=np.int32)
-    emit[0, :2] = [1, 2]
+    emit[0, [0, 2]] = [1, 2]  # "ab" at 0, "##c" at 2
     emit[1, 0] = 3
     assert (enc._verify_emit(mat, emit) == emit).all()
     empty = np.full((2, 7), -2, dtype=np.int32)
     assert (enc._verify_emit(mat, empty) == empty).all()
+    assert enc.verify_repairs == 0
     bad = emit.copy()
     bad[1, 0] = 1  # claims "ab" but the unit is "x"
     out = enc._verify_emit(mat, bad)
     assert out[1, 0] == 3 and (out[0] == emit[0]).all()
+    assert enc.verify_repairs == 1
     oob = emit.copy()
     oob[0, 0] = 99
     out = enc._verify_emit(mat, oob)
     assert out[0, 0] == 1 and out[0, 1] == 2
+    assert enc.verify_repairs == 2
+
+
+def test_verify_emit_native_counts_repairs():
+    """The native verifier's repairs are counted as the numpy path's are."""
+    vocab = parse_vocab(["[UNK]", "ab", "##c", "x"])
+    enc = enc_cpu(vocab)
+    mat = np.full((2, 7), 32, dtype=np.int32)
+    mat[0, :3] = [ord("a"), ord("b"), ord("c")]
+    mat[1, 0] = ord("x")
+    emit = np.full((2, 7), -2, dtype=np.int32)
+    emit[0, [0, 2]] = [1, 2]  # "ab" at 0, "##c" at 2
+    emit[1, 0] = 3
+    assert (enc._verify_emit(mat, emit) == emit).all() and enc.verify_repairs == 0
+    bad = emit.copy()
+    bad[1, 0] = 1
+    out = enc._verify_emit(mat, bad)
+    assert (out == emit).all() and enc.verify_repairs == 1
 
 
 def test_full_encode_with_numpy_verify(monkeypatch):
@@ -237,6 +257,8 @@ def test_compact_overflow_falls_back_to_full_emit(monkeypatch):
     monkeypatch.setattr(enc, "_fetch_full", counting_full)
     np.testing.assert_array_equal(enc.encode_bytes(data), oracle_ids(vocab, data))
     assert full_calls, "compact cap did not overflow; fallback untested"
+    assert enc.full_fetches == len(full_calls)
+    assert enc.verify_repairs == 0
 
 
 def test_cpu_path_launches_no_kernel():
@@ -310,6 +332,22 @@ def test_device_role_auto_rescues_timeout():
     np.testing.assert_array_equal(enc.encode_bytes(corpus), oracle_ids(vocab, corpus))
     assert enc.device_fallbacks >= 1
     assert "Timeout" in (enc.last_rescue_cause or "")
+
+
+def test_device_role_auto_timeout_raises_on_cuda():
+    """On a CUDA encoder a missed deadline raises: the work the caller put
+    on the card never moves to the CPU.  Only the rescue decision reads
+    enc.device, so a CPU encoder relabelled as CUDA stands in for one."""
+    corpus, _, enc = _auto_encoder()
+    enc.device = torch.device("cuda")
+
+    def stalled_fetch(handle):
+        raise TimeoutError("simulated stall")
+
+    enc._fetch_buckets = stalled_fetch
+    with pytest.raises(TimeoutError, match="simulated stall"):
+        enc.encode_bytes(corpus)
+    assert enc.device_fallbacks == 0 and not enc._device_dead
 
 
 def test_device_role_auto_host_bug_propagates():

@@ -156,12 +156,13 @@ def test_compact_wrapper_cpu_equals_jax_compact():
     want = _jax_compact_emits(small, STRIDES[:2], host, cap)
     before = wk.word_match_commit_bucket.launches
     cps = [torch.from_numpy(_narrow(m)) for m in small]
-    fused = wk.word_match_commit_compact(cps, tables, cap=cap)
+    fused, emits = wk.word_match_commit_compact(cps, tables, cap=cap)
     assert wk.word_match_commit_bucket.launches == before  # CPU: plain version
     assert fused.dtype == torch.int32 and fused.shape == (1 + 48 + cap,)
     got = wk.decode_compact(fused.numpy(), [m.shape for m in small], cap)
-    for g, w in zip(got, want):
+    for g, e, w in zip(got, emits, want):
         np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(e.numpy(), w)
     assert all((w != -2).any() for w in want)
 
 

@@ -75,6 +75,13 @@ def _narrow(mat: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(mat, dtype=np.int32)
 
 
+def compact_cap(n_units: int) -> int:
+    """Compact-output capacity for a dispatch of n_units units: ~1.2
+    ids/unit is typical; 2x + slack covers heavy-subword corpora, with a
+    full-emit fallback beyond."""
+    return 1 << max(13, (2 * n_units + 1024 - 1).bit_length())
+
+
 def _fetch_under_deadline(fn, timeout_s: float):
     """Run fn() — a BLOCKING device fetch — on a fresh daemon thread and
     wait up to timeout_s.  Returns (True, value) on success, (False,
@@ -102,9 +109,11 @@ def _fetch_under_deadline(fn, timeout_s: float):
     return True, box["value"]
 
 
-# Failures that device_role="auto" rescues on the host: a fetch that
-# misses its deadline.  A CUDA error poisons the context, so rescuing onto
-# the host would only hide it: it propagates, as host-side bugs do.
+# Failures that device_role="auto" rescues on the host, and only on a CPU
+# encoder: a fetch that misses its deadline.  On a CUDA device the miss
+# propagates, so work the caller put on the card never moves to the CPU.
+# A CUDA error poisons the context, so rescuing onto the host would only
+# hide it: it propagates, as host-side bugs do.
 _DEVICE_ERRORS = (TimeoutError,)
 
 
@@ -173,6 +182,7 @@ class WordEncoder:
         This catches any hash collision that surfaces as an emitted
         token; the residual risk (a collision at a never-emitted position
         perturbing only UNK placement) stays at ~2^-64 per probe.
+        Repaired units are counted in self.verify_repairs.
 
         device_role:
           - "primary" (default): a device fetch blocks until the result
@@ -181,13 +191,14 @@ class WordEncoder:
             identical pipeline and identical ids, but the blocking fetch
             runs on a daemon worker thread under a deadline
             (DEVICE_FIRST_FETCH_TIMEOUT_S for the encoder's first fetch,
-            DEVICE_FETCH_TIMEOUT_S after).  A fetch that misses its
-            deadline is RESCUED by encoding that chunk's units with the
-            native host oracle, so an encode always completes.  After
-            DEVICE_DEAD_AFTER consecutive rescues the device is latched
-            dead and later chunks skip device dispatch entirely.  Rescues
+            DEVICE_FETCH_TIMEOUT_S after).  On a CUDA device a fetch that
+            misses its deadline raises TimeoutError: the encode fails
+            rather than carry on on the CPU.  On device="cpu" it is
+            RESCUED by encoding that chunk's units with the native host
+            oracle; after DEVICE_DEAD_AFTER consecutive rescues the
+            plain path is latched dead and later chunks skip it.  Rescues
             are counted in self.device_fallbacks; the latest cause string
-            is kept in self.last_rescue_cause.  A CUDA error is not
+            is kept in self.last_rescue_cause.  A CUDA error is never
             rescued: it poisons the context, and it propagates."""
         if not loader.available():
             # No silent switch to another engine (the JAX package falls
@@ -215,6 +226,8 @@ class WordEncoder:
             raise ValueError(f"unknown device_role {device_role!r}")
         self.device_role = device_role
         self.device_fallbacks = 0  # rescued (timed-out) fetches
+        self.verify_repairs = 0  # units re-encoded by _verify_emit
+        self.full_fetches = 0  # fetches past the compact cap (_fetch_full)
         self.last_rescue_cause: str | None = None
         self._consec_rescues = 0
         self._device_dead = False  # latched after DEVICE_DEAD_AFTER rescues
@@ -251,15 +264,11 @@ class WordEncoder:
         if not nonempty:
             return ("sync", [None] * len(mats))
         shapes = [mats[b].shape for b in nonempty]
-        n_units_total = sum(u for u, _ in shapes)
-        # Compact-output capacity: ~1.2 ids/unit is typical; 2x + slack
-        # covers heavy-subword corpora, with a full-emit fallback beyond.
-        cap = 1 << max(13, (2 * n_units_total + 1024 - 1).bit_length())
+        cap = compact_cap(sum(u for u, _ in shapes))
         keep: list = []
         with self._on_stream():
             cps = [self._to_device(_narrow(mats[b]), keep) for b in nonempty]
-            emits = wk.word_match_commit_multi(cps, self.dtables)
-            fused = wk.compact_emits(emits, cap)
+            fused, emits = wk.word_match_commit_compact(cps, self.dtables, cap=cap)
             event = None
             if self._stream is not None:
                 host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=True)
@@ -278,6 +287,7 @@ class WordEncoder:
             event.synchronize()
         got = wk.decode_compact(host.numpy(), shapes, cap)
         if got is None:  # >2 ids/unit on average (UNK-heavy / char vocabs)
+            self.full_fetches += 1
             got = self._fetch_full(emits)
         out: list[np.ndarray | None] = [None] * n_mats
         for b, emit in zip(nonempty, got):
@@ -297,6 +307,7 @@ class WordEncoder:
         bad = loader.verify_emit(mat, emit, self.vocab, self._unk_id)
         if bad is not None:
             if bad.size:  # pragma: no cover - requires a hash collision
+                self.verify_repairs += int(bad.size)
                 emit = emit.copy()
                 for r in bad.tolist():
                     row = mat[r]
@@ -335,6 +346,7 @@ class WordEncoder:
                 if mism.any():
                     bad_rows.update(rr_c[mism].tolist())
         if bad_rows:  # pragma: no cover - requires a hash collision
+            self.verify_repairs += len(bad_rows)
             emit = emit.copy()
             for r in bad_rows:
                 row = mat[r]
@@ -479,8 +491,8 @@ class WordEncoder:
     # collective entry counts must not be).
     SCALAR_SMALL_CPLEN = 2
 
-    # device_role="auto": give up on a device fetch after this long and
-    # rescue the chunk on the host oracle.  The kernel is built eagerly in
+    # device_role="auto": give up on a device fetch after this long (raise
+    # on CUDA, rescue on the host oracle on CPU).  The kernel is built eagerly in
     # __init__, so no fetch ever waits on a compile and there is no
     # per-shape compile deadline to keep; the encoder's FIRST fetch keeps
     # a longer deadline all the same, because it also absorbs the CUDA
@@ -608,9 +620,11 @@ class WordEncoder:
                     self._consec_rescues = 0
                 except _DEVICE_ERRORS as e:
                     # A stalled fetch (CUDA errors and host-side bugs are
-                    # not in _DEVICE_ERRORS and propagate): rescue the
-                    # chunk on the host oracle (identical ids by
-                    # construction).
+                    # not in _DEVICE_ERRORS and propagate).  On the card
+                    # it propagates too; on the CPU, rescue the chunk on
+                    # the host oracle (identical ids by construction).
+                    if self.device.type == "cuda":
+                        raise
                     self.device_fallbacks += 1
                     self.last_rescue_cause = repr(e)
                     self._consec_rescues += 1

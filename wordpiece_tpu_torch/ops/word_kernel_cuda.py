@@ -192,10 +192,13 @@ def compact_emits(emits, cap: int) -> torch.Tensor:
     return out[: 1 + n + cap]
 
 
-def word_match_commit_compact(cps, tables: DeviceTables, *, cap: int) -> torch.Tensor:
+def word_match_commit_compact(cps, tables: DeviceTables, *, cap: int):
     """All buckets, then the compact vector (the counterpart of
-    wordpiece_tpu's word_match_commit_compact)."""
-    return compact_emits(word_match_commit_multi(cps, tables), cap)
+    wordpiece_tpu's word_match_commit_compact).  Returns (compact vector,
+    emit matrices): the emits stay on the device for the caller's
+    full-emit fallback when the total exceeds `cap`."""
+    emits = word_match_commit_multi(cps, tables)
+    return compact_emits(emits, cap), emits
 
 
 def decode_compact(fused: np.ndarray, shapes, cap: int):
