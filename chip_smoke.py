@@ -8,27 +8,36 @@ nvcc and a C++ toolchain.  Imports torch and the port, never jax or the
 JAX package.  Phases, each fatal on failure:
 
  1. the card: name and power limit from nvidia-smi;
- 2. build: nvcc compiles csrc/word_kernel.cu; ptxas' registers, shared
-    memory and spills are printed;
- 3. kernel vs plain: the CUDA kernel and its plain PyTorch version, on
-    the card, on the same unit matrices (random ASCII, multilingual,
-    astral-plane, UNK-heavy, empty rows; a row count that ends in a
-    partial block) at widths 7/15/31/127 with the bert-shaped vocab; emit
-    matrices and decoded compact vectors must be equal (integers:
-    tolerance exactly 0), and a cap below the total must be detected with
-    the counts and the kept emit matrices intact;
- 4. main path: the kernel's launch count is set to 0, then the fast engine
-    encodes 10 MB en/ru/ja/zh corpora on the bert-shaped vocab through the
-    user entry points (ids must equal the native oracle), 3 MB of en on a
-    char-level vocab (past the compact cap: the full-emit fetch) and every
-    tests/golden/*.npz stream (byte-identical); the count must be > 0,
-    and device_fallbacks and verify_repairs 0;
- 5. numbers: at the en first chunk's bucket shapes, the kernel and its
-    plain version are held equal (emit matrices and the decoded compact
-    vector) and timed by CUDA events; the kernel's bound, the 10 MB en
-    encode rate (min and median of 5) with its stage breakdown, and one more such
-    encode under torch.profiler: device time per kernel and the card's
-    busy share of the wall time (--trace PATH also writes its trace).
+ 2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel and
+    the compaction kernel, one library); ptxas' registers, shared memory
+    and spills are printed;
+ 3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
+    multilingual, astral-plane, UNK-heavy, empty rows; a row count that
+    ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
+    vocab, the match+commit kernel equals its plain PyTorch version, once
+    with the keys staged in shared memory and once with the global-key
+    layout forced; the five matrices of a width go through one dispatch
+    whose compact vector (compaction kernel) must equal the plain
+    compaction (compact_emits), with a cap above and below the total (the
+    overflow keeps the true total, whole counts and the emit matrices);
+    then one dispatch of all four widths in mixed dtypes and an empty
+    bucket, in both key layouts.  Integers: tolerance exactly 0;
+ 4. main path: every kernel's launch count is set to 0, then the fast
+    engine encodes 10 MB en/ru/ja/zh corpora on the bert-shaped vocab
+    through the user entry points (ids must equal the native oracle), 3 MB
+    of en on a char-level vocab (past the compact cap: the full-emit
+    fetch) and every tests/golden/*.npz stream (byte-identical); both
+    kernels must have launched once per dispatch, and device_fallbacks
+    and verify_repairs must be 0;
+ 5. numbers: at the first dispatch's bucket shapes of each of en/ru/ja/zh,
+    both kernels are held equal to their plain versions again, then timed
+    by CUDA events (the kernels behind a spin kernel, so that the events
+    time the card and not the host's enqueue), beside their plain
+    versions, torch.masked_select (the one PyTorch call that computes the
+    compaction) and each kernel's bound; the 10 MB en encode rate (min and
+    median of 5) with its stage breakdown, and one more such encode under
+    torch.profiler: device time per kernel and the card's busy share of
+    the wall time (--trace PATH also writes its trace).
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -82,6 +91,36 @@ def cuda_ms(fn, iters: int) -> float:
     for _ in range(iters):
         fn()
     end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of fn() in ms by CUDA events, for calls whose host
+    side (Python, ctypes, allocation) takes longer than their kernels: a
+    spin kernel holds the card while the host enqueues every call, so the
+    events bracket the card's work alone.  Raises if the spin ran out
+    before the host had enqueued the last call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event()
+    # Cycles at <= 2 GHz: the spin outlasts 4x the measured enqueue time.
+    torch.cuda._sleep(int(2e9 * 4 * iters * max(enqueue_s, 20e-6)))
+    spin.record()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if spin.query():
+        raise RuntimeError("device_ms: the host did not stay ahead of the card")
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -176,36 +215,64 @@ def unit_matrices(width: int, words: list[str], rng, n: int = 2061) -> dict:
     }
 
 
-def kernel_bytes_ops(cp, tables) -> tuple[int, int]:
-    """Bytes one launch must move (each input read once, the output written
-    once) and the integer operations it does on these inputs: per probed
-    length ~12 (two hash multiply-adds, key and lane folding), per probed
-    candidate row 3 compares.  Counts what this data needs: each position
-    probes only the lengths of its window."""
+def kernel_bytes_ops(cps, tables) -> tuple[int, int]:
+    """Bytes one match+commit dispatch must move (the units, the packed
+    slot tables and the lane salts read once; the emit matrices and the
+    counts written once) and the integer operations of probing every
+    position on these inputs: ~12 per probed length (two hash
+    multiply-adds, key and lane folding) and one compare per occupied slot
+    of the probed (length, lane) lists, each position over the lengths of
+    its window only.  The kernel probes only the positions its walk
+    visits, so this overcounts its operations; the bytes bind all the
+    same."""
     import torch
 
-    from wordpiece_tpu_torch.ops.word_kernel import _features, _widen
+    from wordpiece_tpu_torch.core.length_tables import KIND_MIX, LEN_MIX
+    from wordpiece_tpu_torch.ops.word_kernel import MASK32, _features, _mul32, _widen
 
-    u, w = cp.shape
     nbytes = (
-        cp.numel() * cp.element_size()
-        + u * w * 4
-        + tables.packed.numel() * 4
-        + tables.rows_off_t.numel() * 4
+        tables.slot_image.numel() * 4
+        + tables.n_slots * 16
         + tables.lane_salts_t.numel() * 4
     )
-    wide = _widen(cp, w, tables.max_len)
-    _, _, _, _, window = _features(wide, w, tables.max_len)
-    lmax = torch.clamp(window, max=tables.max_len)
-    b_l = [0] + [
-        tables.rows_off[l + 1] - tables.rows_off[l] for l in range(1, tables.max_len + 1)
-    ]
-    cum = torch.tensor(
-        [sum(b_l[: k + 1]) for k in range(len(b_l))], dtype=torch.int64, device=cp.device
-    )
-    probes = int(cum[lmax].sum())
-    lengths = int(lmax.sum())
-    return int(nbytes), 3 * probes + 12 * lengths
+    lengths = probes = 0
+    sizes = (tables.slot_off[1:] - tables.slot_off[:-1]).to(torch.int64)
+    for cp in cps:
+        u, w = cp.shape
+        nbytes += cp.numel() * cp.element_size() + u * w * 4 + u * 4
+        wide = _widen(cp, w, tables.max_len)
+        _, _, _, wp, window = _features(wide, w, tables.max_len)
+        lmax = torch.clamp(window, max=tables.max_len)
+        lengths += int(lmax.sum())
+        kind = wp.to(torch.int64)
+        h1 = torch.zeros((u, w), dtype=torch.int64, device=cp.device)
+        h2 = torch.zeros_like(h1)
+        for l in range(1, tables.max_len + 1):
+            c = wide[:, l - 1 : l - 1 + w]
+            h1 = (_mul32(h1, tables.mult1) + c) & MASK32
+            h2 = (_mul32(h2, tables.mult2) + c) & MASK32
+            len_mix = (LEN_MIX * l) & MASK32
+            mixed = h1 ^ ((h2 << 1) & MASK32) ^ len_mix ^ (kind * KIND_MIX)
+            lane = _mul32(mixed, tables.lane_salts[l] | 1) >> (32 - 7)
+            probes += int(torch.where(lmax >= l, sizes[l * 128 + lane], 0).sum())
+    return int(nbytes), 12 * lengths + probes
+
+
+def compact_bytes_ops(emits, total: int, cap: int) -> tuple[int, int]:
+    """Bytes the compaction must move (the emit matrices and the counts
+    read once; the total and the kept entries written once) and its
+    operations: one compare per emit slot, one scan add per unit, a
+    multiply-add per kept entry."""
+    kept = min(total, cap)
+    cells = sum(e.numel() for e in emits)
+    units = sum(int(e.shape[0]) for e in emits)
+    return cells * 4 + units * 4 + (1 + kept) * 4, cells + units + 2 * kept
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def main(argv=None) -> int:
@@ -261,92 +328,142 @@ def main(argv=None) -> int:
     if not loader.available():
         raise RuntimeError("native host runtime did not build")
 
-    # ---- 3. kernel vs plain ----------------------------------------------
+    # ---- 3. kernels vs plain -----------------------------------------------
     en = make_corpus(10_000_000, lang="en")
     vocab_en = parse_vocab(make_vocab_bert(en))
     host_tables = build_length_tables(vocab_en)
     tables = load_length_tables(host_tables, dev)
     words = en[:400_000].decode("utf-8", errors="ignore").split()
     rng = np.random.default_rng(2024)
-    max_err = 0
+    mc = wk.word_match_commit_multi
+    max_err = {"match": 0, "compact": 0}
+
+    def plain_emit(cp, tabs):
+        return word_match_commit(
+            cp, tabs.k1, tabs.k2, tabs.tid, width=int(cp.shape[1]), **tabs.statics
+        )
+
+    def err_of(got, want) -> int:
+        if got.shape != want.shape:
+            raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+        return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+    def check_dispatch(cps, wants, tabs, global_keys: bool, label: str):
+        """One dispatch of `cps` against the plain emits `wants`: the emit
+        matrices, and the compact vector against the plain compaction with
+        a cap above and one below the total.  Returns the total."""
+        before = (mc.launches, mc.launches_global, wk.compact_from_counts.launches)
+        emits = mc(cps, tabs, global_keys=global_keys)
+        after = (mc.launches, mc.launches_global, wk.compact_from_counts.launches)
+        if after != (before[0] + 1, before[1] + int(global_keys), before[2]):
+            raise AssertionError(f"{label}: not one launch in the "
+                                 f"{'global' if global_keys else 'shared'}-key layout")
+        torch.cuda.synchronize()
+        for e, w in zip(emits, wants):
+            err = err_of(e, w)
+            max_err["match"] = max(max_err["match"], err)
+            if err or not torch.equal(e, w):
+                raise AssertionError(f"{label}: match kernel != plain")
+        n = sum(int(c.shape[0]) for c in cps)
+        total = sum(int((w != -2).sum()) for w in wants)
+        shapes = [tuple(c.shape) for c in cps]
+        for cap in (total + 7, total // 2):
+            fused, kept = wk.word_match_commit_compact(cps, tabs, cap=cap, global_keys=global_keys)
+            want = wk.compact_emits(wants, cap)
+            defined = 1 + n + min(total, cap)
+            err = err_of(fused[:defined], want[:defined])
+            max_err["compact"] = max(max_err["compact"], err)
+            if err or int(fused[0]) != total:
+                raise AssertionError(f"{label}: compaction kernel != plain at cap {cap}")
+            decoded = wk.decode_compact(fused.cpu().numpy(), shapes, cap)
+            if cap >= total:
+                if not all(np.array_equal(d, w.cpu().numpy()) for d, w in zip(decoded, wants)):
+                    raise AssertionError(f"{label}: decoded compact != plain emits")
+            elif decoded is not None or not all(torch.equal(e, w) for e, w in zip(kept, wants)):
+                raise AssertionError(f"{label}: overflow not reported or kept emits wrong")
+        return total
+
     for width in WIDTHS:
         mats = unit_matrices(width, words, rng)
-        cps, plains = [], []
+        cps, wants = [], []
         for name, mat in mats.items():
             cp = torch.from_numpy(_narrow(mat)).to(dev)
-            got = wk.word_match_commit_bucket(cp, tables)
-            want = word_match_commit(
-                cp, tables.k1, tables.k2, tables.tid, width=width, **tables.statics
-            )
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            n_emit = int((want != -2).sum())
-            emit_json({"phase": "kernel_vs_plain", "width": width, "matrix": name,
-                       "dtype": str(cp.dtype), "units": mat.shape[0], "emitted": n_emit,
-                       "mismatches": int((got != want).sum()), "max_abs_err": err})
-            if err != 0 or not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain at width {width}, matrix {name}")
-            max_err = max(max_err, err)
+            want = plain_emit(cp, tables)
+            for global_keys in (False, True):
+                keys = "global" if global_keys else "shared"
+                check_dispatch([cp], [want], tables, global_keys, f"width {width}, {name}, {keys}")
+                emit_json({"phase": "kernel_vs_plain", "width": width, "matrix": name,
+                           "dtype": str(cp.dtype), "keys": keys, "units": mat.shape[0],
+                           "emitted": int((want != -2).sum()), "max_abs_err": 0})
             cps.append(cp)
-            plains.append(want.cpu().numpy())
-        shapes = [tuple(c.shape) for c in cps]
-        cap = sum(u * w for u, w in shapes)
-        fused, _ = wk.word_match_commit_compact(cps, tables, cap=cap)
-        fused = fused.cpu().numpy()
-        decoded = wk.decode_compact(fused, shapes, cap)
-        for d, p in zip(decoded, plains):
-            if not np.array_equal(d, p):
-                raise AssertionError(f"decoded compact != plain emits at width {width}")
-        # A cap below the total: the decode must report the overflow, the
-        # counts must stay whole, and the emit matrices the compact call
-        # keeps on the card (what the engine's full-emit fetch copies) must
-        # equal the plain ones.
-        total = int(fused[0])
-        short, kept = wk.word_match_commit_compact(cps, tables, cap=total // 2)
-        short = short.cpu().numpy()
-        n_rows = sum(u for u, _ in shapes)
-        if (int(short[0]) != total
-                or wk.decode_compact(short, shapes, total // 2) is not None
-                or not np.array_equal(short[1 : 1 + n_rows], fused[1 : 1 + n_rows])):
-            raise AssertionError(f"compact overflow not reported at width {width}")
-        for e, p in zip(kept, plains):
-            if not np.array_equal(e.cpu().numpy(), p):
-                raise AssertionError(f"kept emits != plain emits at width {width}")
-        emit_json({"phase": "compact_vs_plain", "width": width, "total": total,
-                   "equal": True, "overflow_cap": total // 2, "overflow_detected": True})
+            wants.append(want)
+        total = check_dispatch(cps, wants, tables, False, f"width {width}, five buckets")
+        emit_json({"phase": "compact_vs_plain", "width": width, "buckets": len(cps),
+                   "total": total, "caps": [total + 7, total // 2], "max_abs_err": 0})
+
+    # One dispatch of every width, in mixed dtypes, with an empty bucket.
+    mixed_np = [unit_matrices(7, words, rng)["astral"],
+                unit_matrices(15, words, rng)["multilingual"].astype(np.uint16),
+                unit_matrices(31, words, rng)["ascii"].astype(np.uint8),
+                np.zeros((0, 15), np.uint8),
+                unit_matrices(127, words, rng)["unk_heavy"]]
+    mixed = [torch.from_numpy(np.ascontiguousarray(m)).to(dev) for m in mixed_np]
+    dtypes = [str(m.dtype) for m in mixed]
+    if len(set(dtypes[:3])) != 3:
+        raise AssertionError(f"mixed dispatch without three dtypes: {dtypes}")
+    mixed_wants = [plain_emit(cp, tables) for cp in mixed]
+    for global_keys in (False, True):
+        keys = "global" if global_keys else "shared"
+        total = check_dispatch(mixed, mixed_wants, tables, global_keys, f"mixed dispatch, {keys}")
+        emit_json({"phase": "mixed_dispatch_vs_plain", "keys": keys,
+                   "buckets": [list(m.shape) for m in mixed], "dtypes": dtypes,
+                   "total": total, "max_abs_err": 0})
 
     # ---- 4. main path -----------------------------------------------------
-    wk.word_match_commit_bucket.launches = 0
-    captured: list = []
+    mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    captured: dict = {}
+    dispatches = 0
     main_stats = {}
+    encoders = {}
+
+    def recording(enc, lang):
+        orig = enc._dispatch_buckets
+
+        def record(mats):
+            nonlocal dispatches
+            if any(m.shape[0] for m in mats):
+                dispatches += 1
+                if lang is not None and lang not in captured:
+                    captured[lang] = [m.copy() for m in mats if m.shape[0]]
+            return orig(mats)
+
+        enc._dispatch_buckets = record
+        return enc
+
     for lang in ("en", "ru", "ja", "zh"):
         data = en if lang == "en" else make_corpus(10_000_000, lang=lang)
         vocab = vocab_en if lang == "en" else parse_vocab(make_vocab_bert(data))
         want = loader.VocabHandle(vocab).encode(loader.decode_utf8(data))
-        before = wk.word_match_commit_bucket.launches
+        before = (mc.launches, wk.compact_from_counts.launches, dispatches)
+        # The user entry point; each corpus's first dispatch is kept for
+        # phase 5's kernel timing at the main path's shapes.
+        enc = recording(wpt.make_encoder(vocab, "fast", device="cuda"), lang)
+        got = enc.encode_bytes(data)
+        del enc._dispatch_buckets
+        main_stats[lang] = {"match": mc.launches - before[0],
+                            "compact": wk.compact_from_counts.launches - before[1],
+                            "dispatches": dispatches - before[2]}
+        encoders[lang] = enc
         if lang == "en":
-            # The user entry point; the dispatches' unit matrices are kept
-            # for phase 5's kernel timing at the main path's shapes.
-            enc = wpt.make_encoder(vocab, "fast", device="cuda")
-            orig = enc._dispatch_buckets
-
-            def recording(mats, orig=orig):
-                captured.append([m.copy() for m in mats])
-                return orig(mats)
-
-            enc._dispatch_buckets = recording
-            got = enc.encode_bytes(data)
-            main_stats[lang] = wk.word_match_commit_bucket.launches - before
-            del enc._dispatch_buckets
             enc_en, want_en = enc, want
+            api_before = (mc.launches, wk.compact_from_counts.launches)
             api_ids = wpt.fast.encode_text(data[:200_000], vocab, device="cuda")
+            api_launches = mc.launches - api_before[0]
             api_want = loader.VocabHandle(vocab).encode(loader.decode_utf8(data[:200_000]))
             if api_ids != api_want.tolist():
                 raise AssertionError("fast.encode_text != native oracle")
-        else:
-            enc = wpt.make_encoder(vocab, "fast", device="cuda")
-            got = enc.encode_bytes(data)
-            main_stats[lang] = wk.word_match_commit_bucket.launches - before
+            if api_launches < 1 or wk.compact_from_counts.launches - api_before[1] != api_launches:
+                raise AssertionError("fast.encode_text did not run both kernels once per dispatch")
         ok = got.shape == want.shape and np.array_equal(got, want)
         emit_json({"phase": "main_path", "corpus": f"{lang}_10MB", "vocab": "bert_28996",
                    "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
@@ -364,7 +481,7 @@ def main(argv=None) -> int:
     head = en[:3_000_000]
     chars = sorted(set("".join(head.decode("utf-8", errors="ignore").split())))
     char_vocab = parse_vocab(["[UNK]"] + chars + ["##" + c for c in chars])
-    enc = wpt.make_encoder(char_vocab, "fast", device="cuda")
+    enc = recording(wpt.make_encoder(char_vocab, "fast", device="cuda"), None)
     got = enc.encode_bytes(head)
     want = loader.VocabHandle(char_vocab).encode(loader.decode_utf8(head))
     ok = np.array_equal(got, want)
@@ -391,7 +508,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: regenerated corpus differs")
         if hashlib.sha256("\n".join(lines).encode()).hexdigest() != str(z["vocab_sha"]):
             raise AssertionError(f"{path}: regenerated vocab differs")
-        enc = wpt.make_encoder(parse_vocab(lines), "fast", device="cuda")
+        enc = recording(wpt.make_encoder(parse_vocab(lines), "fast", device="cuda"), None)
         got = enc.encode_bytes(corpus)
         ok = got.dtype == np.int32 and np.array_equal(got, z["ids"].astype(np.int32))
         emit_json({"phase": "golden", "file": os.path.basename(path), "ids": int(got.shape[0]),
@@ -402,61 +519,70 @@ def main(argv=None) -> int:
         if enc.device_fallbacks != 0 or enc.verify_repairs != 0:
             raise AssertionError(f"{path}: device_fallbacks={enc.device_fallbacks}, "
                                  f"verify_repairs={enc.verify_repairs}")
-    launches = wk.word_match_commit_bucket.launches
-    emit_json({"phase": "main_path_launches", "word_match_commit": launches,
+    launches = {"match": mc.launches, "compact": wk.compact_from_counts.launches}
+    emit_json({"phase": "main_path_launches", "word_match_commit": launches["match"],
+               "word_match_commit_global_keys": mc.launches_global,
+               "compact": launches["compact"], "dispatches": dispatches + api_launches,
                "per_10MB": main_stats})
-    if launches <= 0:
-        raise AssertionError("the main path never launched the CUDA kernel")
+    if min(launches.values()) <= 0:
+        raise AssertionError("the main path never launched a CUDA kernel")
+    if set(launches.values()) != {dispatches + api_launches}:
+        raise AssertionError(f"not one launch of each kernel per dispatch: {launches}, "
+                             f"{dispatches + api_launches} dispatches")
+    if mc.launches_global:
+        raise AssertionError("the bert-scale main path read its keys from global memory")
 
     # ---- 5. numbers -------------------------------------------------------
-    first = [m for m in captured[0] if m.shape[0]]
-    bucket_rows = []
-    k_ms = p_ms = 0.0
-    n_bytes = n_ops = 0
-    first_cps, first_plains = [], []
-    for m in first:
-        cp = torch.from_numpy(_narrow(m)).to(dev)
-        width = m.shape[1]
-        # Held against the plain version at exactly these shapes first.
-        got = wk.word_match_commit_bucket(cp, tables)
-        want = word_match_commit(
-            cp, tables.k1, tables.k2, tables.tid, width=width, **tables.statics
-        )
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"kernel != plain at the main path's width-{width} bucket")
-        max_err = max(max_err, err)
-        first_cps.append(cp)
-        first_plains.append(want.cpu().numpy())
-        km = cuda_ms(lambda: wk.word_match_commit_bucket(cp, tables), 200)
-        pm = cuda_ms(
-            lambda: word_match_commit(
-                cp, tables.k1, tables.k2, tables.tid, width=width, **tables.statics
-            ),
-            5,
-        )
-        b, o = kernel_bytes_ops(cp, tables)
-        bucket_rows.append({"width": width, "units": m.shape[0], "dtype": str(cp.dtype),
-                            "ms": km, "plain_ms": pm, "bytes": b, "ops": o,
-                            "max_abs_err": err})
-        k_ms += km
-        p_ms += pm
-        n_bytes += b
-        n_ops += o
-    shapes = [tuple(c.shape) for c in first_cps]
-    cap = compact_cap(sum(u for u, _ in shapes))
-    fused, _ = wk.word_match_commit_compact(first_cps, tables, cap=cap)
-    decoded = wk.decode_compact(fused.cpu().numpy(), shapes, cap)
-    if decoded is None or not all(np.array_equal(d, p) for d, p in zip(decoded, first_plains)):
-        raise AssertionError("decoded compact != plain emits at the main path's shapes")
-    if not (k_ms > 0 and p_ms > 0 and n_bytes > 0 and n_ops > 0):
-        raise AssertionError("kernel_time: a time or a bound term was not measured")
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CORE_OPS_PER_S * 1e3
-    emit_json({"phase": "kernel_time", "shapes": "en 10MB first chunk, every non-empty bucket",
-               "card": card, "buckets": bucket_rows, "ms": k_ms, "plain_ms": p_ms,
-               "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-               "dispatches_per_10MB_en": len(captured)})
+    timing = {}
+    for lang in ("en", "ru", "ja", "zh"):
+        tabs = encoders[lang].dtables
+        cps = [torch.from_numpy(_narrow(m)).to(dev) for m in captured[lang]]
+        shapes = [tuple(c.shape) for c in cps]
+        n = sum(u for u, _ in shapes)
+        cap = compact_cap(n)
+        # Held against the plain versions at exactly these shapes first.
+        wants = [plain_emit(cp, tabs) for cp in cps]
+        for global_keys in (False, True):
+            total = check_dispatch(cps, wants, tabs, global_keys,
+                                   f"{lang} first dispatch, {'global' if global_keys else 'shared'}")
+        fused = torch.empty(1 + n + cap, dtype=torch.int32, device=dev)
+        counts = fused[1 : 1 + n]
+        emits = mc(cps, tabs, counts=counts)
+        wk.compact_from_counts(emits, fused, cap)
+        torch.cuda.synchronize()
+        k_ms = device_ms(lambda: mc(cps, tabs, counts=counts), 200)
+        kg_ms = device_ms(lambda: mc(cps, tabs, counts=counts, global_keys=True), 200)
+        c_ms = device_ms(lambda: wk.compact_from_counts(emits, fused, cap), 200)
+        scan_ms = device_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 200)
+        kp_ms = cuda_ms(lambda: [plain_emit(cp, tabs) for cp in cps], 5)
+        cp_ms = cuda_ms(lambda: wk.compact_emits(emits, cap), 50)
+        # torch.masked_select sizes its output on the host, so each call
+        # waits for the card: its time includes that round trip.
+        vals = torch.cat([((e + 2) * 128 + torch.arange(e.shape[1], device=dev,
+                                                        dtype=torch.int32)).reshape(-1)
+                          for e in emits])
+        mask = torch.cat([(e != -2).reshape(-1) for e in emits])
+        if not torch.equal(torch.masked_select(vals, mask)[:cap], fused[1 + n : 1 + n + min(total, cap)]):
+            raise AssertionError(f"{lang}: masked_select != the compaction kernel")
+        lib_ms = cuda_ms(lambda: torch.masked_select(vals, mask), 50)
+        kb, ko = kernel_bytes_ops(cps, tabs)
+        cb, co = compact_bytes_ops(emits, total, cap)
+        k_bound, k_by = bound_ms(kb, ko)
+        c_bound, c_by = bound_ms(cb, co)
+        timing[lang] = {
+            "match": {"ms": k_ms, "ms_global_keys": kg_ms, "plain_ms": kp_ms, "bytes": kb,
+                      "ops": ko, "bound_ms": k_bound, "bound_by": k_by},
+            "compact": {"ms": c_ms, "cumsum_ms": scan_ms, "plain_ms": cp_ms,
+                        "library_ms": lib_ms, "bytes": cb, "ops": co, "bound_ms": c_bound,
+                        "bound_by": c_by},
+        }
+        if not all(v > 0 for v in (k_ms, kg_ms, c_ms, kp_ms, cp_ms, lib_ms, kb, ko, cb, co)):
+            raise AssertionError(f"{lang}: a time or a bound term was not measured")
+        emit_json({"phase": "kernel_time", "corpus": f"{lang}_10MB",
+                   "shapes": "first dispatch, every non-empty bucket", "card": card,
+                   "buckets": [{"width": w, "units": u, "dtype": str(c.dtype)}
+                               for (u, w), c in zip(shapes, cps)],
+                   "total": total, "cap": cap, **timing[lang]})
 
     runs = []
     for _ in range(5):
@@ -484,19 +610,35 @@ def main(argv=None) -> int:
                "device_rows": rows, "trace": trace_path})
 
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
-    emit_json({"kernels": [{
-        "name": "word_match_commit",
-        "route": "cuda",
-        "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
-        "replaces": "wordpiece_tpu/ops/word_kernel_pallas.py:68",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }]})
+    t_en = timing["en"]
+    emit_json({"kernels": [
+        {
+            "name": "word_match_commit",
+            "route": "cuda",
+            "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
+            "replaces": "wordpiece_tpu/ops/word_kernel_pallas.py:68",
+            "launches": launches["match"],
+            "max_abs_err": max_err["match"],
+            "ms": t_en["match"]["ms"],
+            "plain_ms": t_en["match"]["plain_ms"],
+            "bound_ms": t_en["match"]["bound_ms"],
+            "bound_by": t_en["match"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "compact_from_counts",
+            "route": "cuda",
+            "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
+            "replaces": "wordpiece_tpu/ops/word_kernel_pallas.py:349",
+            "launches": launches["compact"],
+            "max_abs_err": max_err["compact"],
+            "ms": t_en["compact"]["ms"],
+            "plain_ms": t_en["compact"]["plain_ms"],
+            "bound_ms": t_en["compact"]["bound_ms"],
+            "bound_by": t_en["compact"]["bound_by"],
+            "library_ms": t_en["compact"]["library_ms"],
+        },
+    ]})
     print(card, flush=True)
     emit_json({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                       "count": torch.cuda.device_count()}})

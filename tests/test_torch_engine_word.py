@@ -264,10 +264,10 @@ def test_compact_overflow_falls_back_to_full_emit(monkeypatch):
 def test_cpu_path_launches_no_kernel():
     data = make_corpus(200_000)
     vocab = parse_vocab(make_vocab(data, vocab_size=3000))
-    before = wk.word_match_commit_bucket.launches
+    before = (wk.word_match_commit_multi.launches, wk.compact_from_counts.launches)
     enc = enc_cpu(vocab)
     np.testing.assert_array_equal(enc.encode_bytes(data), oracle_ids(vocab, data))
-    assert wk.word_match_commit_bucket.launches == before
+    assert (wk.word_match_commit_multi.launches, wk.compact_from_counts.launches) == before
     assert enc._stream is None and enc.dtables.packed.device.type == "cpu"
 
 

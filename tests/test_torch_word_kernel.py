@@ -115,9 +115,9 @@ def test_mul32_wraps_like_uint32():
         np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
-def _jax_compact_emits(mats, strides, host, cap):
-    """The JAX package's compact program (Pallas, interpret mode), decoded
-    as its engine decodes it, into per-bucket [U, W] emit matrices."""
+def _jax_compact(mats, strides, host, cap):
+    """The JAX package's compact program (Pallas, interpret mode) on the
+    same buckets: (its fused vector, packed rows per bucket)."""
     packed = [pack_groups(m, s, host.max_len) for m, s in zip(mats, strides)]
     fused = np.asarray(
         jax_compact(
@@ -126,7 +126,13 @@ def _jax_compact_emits(mats, strides, host, cap):
             block_rows=BLOCK_ROWS, cap=cap, interpret=True, **_statics(host),
         )
     )
-    rows = [p.shape[0] for p in packed]
+    return fused, [p.shape[0] for p in packed]
+
+
+def _jax_compact_emits(mats, strides, host, cap):
+    """The JAX compact program decoded as its engine decodes it, into
+    per-bucket [U, W] emit matrices."""
+    fused, rows = _jax_compact(mats, strides, host, cap)
     total = int(fused[0])
     assert total <= cap
     counts = fused[1 : 1 + sum(rows)].astype(np.int64)
@@ -144,26 +150,152 @@ def _jax_compact_emits(mats, strides, host, cap):
     return out
 
 
-def test_compact_wrapper_cpu_equals_jax_compact():
-    """One small case: two buckets (widths 7 and 15) and a 600-token vocab
-    keep the interpreted Pallas program quick to compile and run."""
+def _assert_compact_equals_jax(got, mats, strides, host, cap):
+    """The port's compact vector against the JAX program's, entry for
+    entry.  The JAX vector counts per packed row of 128 / stride units
+    and codes (tid + 2) * 128 + lane with lane = unit-in-row * stride +
+    position; the port counts per unit and codes the position alone.
+    Both list the entries in (bucket, unit, position) order and keep the
+    first `cap` of them."""
+    want, rows = _jax_compact(mats, strides, host, cap)
+    n = sum(m.shape[0] for m in mats)
+    assert got.shape == (1 + n + cap,)
+    total = int(want[0])
+    assert int(got[0]) == total
+    counts = got[1 : 1 + n]
+    row_counts, base = [], 0
+    for m, s, nrows in zip(mats, strides, rows):
+        per_row = np.zeros(nrows * (128 // s), np.int64)
+        per_row[: m.shape[0]] = counts[base : base + m.shape[0]]
+        row_counts.append(per_row.reshape(nrows, 128 // s).sum(axis=1))
+        base += m.shape[0]
+    np.testing.assert_array_equal(np.concatenate(row_counts), want[1 : 1 + sum(rows)])
+    kept = min(total, cap)
+    entries = want[1 + sum(rows) : 1 + sum(rows) + kept].astype(np.int64)
+    # The bucket of every JAX entry, from its rows' counts.
+    bucket_end = np.cumsum([want[1 + r0 : 1 + r0 + r].sum() for r0, r in
+                            zip(np.cumsum([0] + rows[:-1]), rows)])
+    stride = np.asarray(strides)[np.searchsorted(bucket_end, np.arange(kept), side="right")]
+    mapped = (entries >> 7) * 128 + (entries & 127) % stride
+    np.testing.assert_array_equal(got[1 + n : 1 + n + kept], mapped)
+
+
+def _compact_case():
+    """Two buckets (widths 7 and 15) and a 600-token vocab keep the
+    interpreted Pallas program quick to compile and run."""
     _, _, mats = _setup()
     data = make_corpus(200_000)
     host = jax_build_tables(jax_parse_vocab(make_vocab(data, vocab_size=600)))
-    tables = load_length_tables(host, "cpu")
     small = [mats[7]["ascii"][:24], mats[15]["multilingual"][:24]]
+    return host, load_length_tables(host, "cpu"), small
+
+
+def _launch_counts():
+    return (wk.word_match_commit_multi.launches, wk.word_match_commit_multi.launches_global,
+            wk.compact_from_counts.launches)
+
+
+def test_compact_wrapper_cpu_equals_jax_compact():
+    host, tables, small = _compact_case()
     cap = 1 << 13
     want = _jax_compact_emits(small, STRIDES[:2], host, cap)
-    before = wk.word_match_commit_bucket.launches
+    before = _launch_counts()
     cps = [torch.from_numpy(_narrow(m)) for m in small]
     fused, emits = wk.word_match_commit_compact(cps, tables, cap=cap)
-    assert wk.word_match_commit_bucket.launches == before  # CPU: plain version
+    assert _launch_counts() == before  # CPU: plain versions
     assert fused.dtype == torch.int32 and fused.shape == (1 + 48 + cap,)
     got = wk.decode_compact(fused.numpy(), [m.shape for m in small], cap)
     for g, e, w in zip(got, emits, want):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(e.numpy(), w)
     assert all((w != -2).any() for w in want)
+    _assert_compact_equals_jax(fused.numpy(), small, STRIDES[:2], host, cap)
+
+
+def test_compact_overflow_cpu_equals_jax_compact():
+    """A cap below the total: both programs report the true total, the
+    counts stay whole, and the first `cap` entries agree."""
+    host, tables, small = _compact_case()
+    cps = [torch.from_numpy(_narrow(m)) for m in small]
+    full, _ = wk.word_match_commit_compact(cps, tables, cap=1 << 13)
+    total = int(full[0])
+    cap = total // 3
+    fused, _ = wk.word_match_commit_compact(cps, tables, cap=cap)
+    assert int(fused[0]) == total > cap
+    assert wk.decode_compact(fused.numpy(), [m.shape for m in small], cap) is None
+    _assert_compact_equals_jax(fused.numpy(), small, STRIDES[:2], host, cap)
+
+
+def _mixed_buckets():
+    """Widths 7/15/31/127 as uint8/uint16/int32/uint8 and an empty
+    width-15 bucket: the dtypes one dispatch can carry."""
+    _, _, mats = _setup()
+    chosen = [(mats[7]["ascii"], np.uint8), (mats[15]["multilingual"], np.uint16),
+              (mats[31]["astral"], np.int32), (np.zeros((0, 15), np.int32), np.uint8),
+              (mats[127]["empty_rows"], np.uint8)]
+    cps = []
+    for mat, dtype in chosen:
+        assert np.array_equal(mat.astype(dtype).astype(np.int64), mat)
+        cps.append(torch.from_numpy(mat.astype(dtype)))
+    return cps
+
+
+def test_dispatch_wrapper_cpu_mixed_dtypes_equals_plain():
+    """One dispatch over buckets of mixed dtypes and an empty bucket gives
+    each bucket's plain emits and their per-unit counts."""
+    _, tables, _ = _setup()
+    cps = _mixed_buckets()
+    n = sum(int(cp.shape[0]) for cp in cps)
+    counts = torch.full((n,), -7, dtype=torch.int32)
+    before = _launch_counts()
+    emits = wk.word_match_commit_multi(cps, tables, counts=counts, global_keys=True)
+    assert _launch_counts() == before
+    want_counts = []
+    for cp, e in zip(cps, emits):
+        want = word_match_commit(
+            cp, tables.k1, tables.k2, tables.tid, width=int(cp.shape[1]), **tables.statics
+        )
+        assert e.dtype == torch.int32 and e.shape == cp.shape
+        assert torch.equal(e, want)
+        want_counts.append((want != -2).sum(dim=1, dtype=torch.int32))
+    assert torch.equal(counts, torch.cat(want_counts))
+    assert all((e != -2).any() for e in emits if e.shape[0])
+
+
+@pytest.mark.parametrize("cap_kind", ["ample", "overflow"])
+def test_compact_from_counts_cpu_equals_plain(cap_kind):
+    """The compaction wrapper, given the counts in the vector, equals the
+    plain compaction on every defined entry, with and without overflow."""
+    _, tables, _ = _setup()
+    emits = wk.word_match_commit_multi(_mixed_buckets(), tables)
+    n = sum(int(e.shape[0]) for e in emits)
+    total = sum(int((e != -2).sum()) for e in emits)
+    cap = total + 5 if cap_kind == "ample" else total // 2
+    want = wk.compact_emits(emits, cap)
+    fused = torch.full((1 + n + cap,), -9, dtype=torch.int32)
+    fused[1 : 1 + n] = torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits])
+    before = _launch_counts()
+    got = wk.compact_from_counts(emits, fused, cap)
+    assert got is fused and _launch_counts() == before
+    kept = 1 + n + min(total, cap)
+    assert int(got[0]) == total
+    assert torch.equal(got[:kept], want[:kept])
+    decoded = wk.decode_compact(got.numpy(), [tuple(e.shape) for e in emits], cap)
+    if cap_kind == "ample":
+        for d, e in zip(decoded, emits):
+            np.testing.assert_array_equal(d, e.numpy())
+    else:
+        assert decoded is None
+
+
+def test_compact_from_counts_checks_its_vector():
+    _, tables, mats = _setup()
+    emits = wk.word_match_commit_multi([torch.from_numpy(_narrow(mats[7]["ascii"]))], tables)
+    with pytest.raises(ValueError):
+        wk.compact_from_counts(emits, torch.zeros(10, dtype=torch.int32), cap=8)
+    wide = [torch.full((2, 129), -2, dtype=torch.int32)]
+    with pytest.raises(ValueError):
+        wk.compact_from_counts(wide, torch.zeros(1 + 2 + 4, dtype=torch.int32), cap=4)
 
 
 def test_compact_overflow_is_detected():
@@ -184,9 +316,9 @@ def test_compact_overflow_is_detected():
 def test_wrapper_checks_devices_and_shapes():
     _, tables, mats = _setup()
     with pytest.raises(ValueError):
-        wk.word_match_commit_bucket(torch.zeros(4, dtype=torch.int32), tables)
+        wk.word_match_commit_multi([torch.zeros(4, dtype=torch.int32)], tables)
     meta = torch.zeros((2, 7), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
-        wk.word_match_commit_bucket(meta, tables)
-    empty = wk.word_match_commit_bucket(torch.zeros((0, 7), dtype=torch.uint8), tables)
+        wk.word_match_commit_multi([meta], tables)
+    (empty,) = wk.word_match_commit_multi([torch.zeros((0, 7), dtype=torch.uint8)], tables)
     assert empty.shape == (0, 7) and empty.dtype == torch.int32

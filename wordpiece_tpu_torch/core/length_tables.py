@@ -51,16 +51,28 @@ class DeviceTables:
     """LengthTables in the port's device form.
 
     ``packed`` interleaves the three tables as int32[R, 128, 4] = {k1, k2,
-    tid, 0}, so the CUDA kernel fetches one probe slot with one 16-byte
-    load; ``k1``/``k2``/``tid`` are int32[R, 128] views of it for the plain
-    version.  ``rows_off_t`` (int32[max_len + 2]) and ``lane_salts_t`` (the
-    uint32 salts' bits as int32[max_len + 1]) are small device arrays for
-    the kernel; the remaining fields are the host-side statics both
-    versions take."""
+    tid, 0}; ``k1``/``k2``/``tid`` are int32[R, 128] views of it for the
+    plain version.
+
+    The CUDA kernel probes the slot layout of pack_slots instead: the
+    occupied slots of every (length, lane) in row order, one list after
+    another.  ``slot_image`` is int32[off_words + fingerprint words]: the
+    (max_len + 1) * 128 + 1 list offsets (``slot_off``), zero-padded to
+    ``off_words`` (a multiple of 4), then every slot's 16-bit k1
+    fingerprint (``slot_fp``), zero-padded to a multiple of 8 slots, so
+    the kernel stages both with one bulk copy of 16-byte multiples and
+    reads 8 fingerprints per 16-byte load.  ``slot_keys`` is
+    int32[max(n_slots, 1), 4] = {k1, k2, tid, 0}, read on a fingerprint
+    hit (``slot_k1``/``slot_k2``/``slot_tid`` are its columns).
+    ``lane_salts_t`` holds the uint32 salts' bits as int32[max_len + 1].
+    The remaining fields are the host-side statics both versions take."""
 
     packed: torch.Tensor
-    rows_off_t: torch.Tensor
+    slot_image: torch.Tensor
+    slot_keys: torch.Tensor
     lane_salts_t: torch.Tensor
+    off_words: int
+    n_slots: int
     rows_off: tuple
     mult1: int
     mult2: int
@@ -81,6 +93,27 @@ class DeviceTables:
         return self.packed[..., 2]
 
     @property
+    def slot_off(self) -> torch.Tensor:
+        return self.slot_image[: (self.max_len + 1) * LANES + 1]
+
+    @property
+    def slot_fp(self) -> torch.Tensor:
+        """The fingerprints' uint16 bits as int16[n_slots]."""
+        return self.slot_image[self.off_words :].view(torch.int16)[: self.n_slots]
+
+    @property
+    def slot_k1(self) -> torch.Tensor:
+        return self.slot_keys[: self.n_slots, 0]
+
+    @property
+    def slot_k2(self) -> torch.Tensor:
+        return self.slot_keys[: self.n_slots, 1]
+
+    @property
+    def slot_tid(self) -> torch.Tensor:
+        return self.slot_keys[: self.n_slots, 2]
+
+    @property
     def statics(self) -> dict:
         """Keyword arguments of ops.word_kernel.word_match_commit."""
         return dict(
@@ -91,6 +124,49 @@ class DeviceTables:
             lane_salts=self.lane_salts,
             unk_id=self.unk_id,
         )
+
+
+def pack_slots(k1, k2, tid, rows_off, max_len: int):
+    """The occupied slots (tid >= 0) of every (length, lane), in row order,
+    packed one list after another in (length, lane) order.  Built from the
+    k1/k2/tid arrays alone, so either package's tables give the same
+    layout.  Returns (slot_off int64[(max_len + 1) * 128 + 1], k1, k2, tid
+    int32[n_slots]): list (l, lane) is slots slot_off[l * 128 + lane] :
+    slot_off[l * 128 + lane + 1].  Only empty slots are dropped, and they
+    never hit, so a scan of a list in order finds the hits of the row scan
+    in the same order (the last one wins in both)."""
+    k1 = np.asarray(k1).view(np.int32)
+    k2 = np.asarray(k2).view(np.int32)
+    tid = np.asarray(tid, dtype=np.int32)
+    sizes = np.zeros((max_len + 1, LANES), dtype=np.int64)
+    parts = []
+    for l in range(1, max_len + 1):
+        r0, r1 = int(rows_off[l]), int(rows_off[l + 1])
+        if r1 == r0:
+            continue
+        # Lane-major, rows ascending within a lane.
+        lane, row = np.nonzero(tid[r0:r1].T >= 0)
+        rows = r0 + row
+        parts.append((k1[rows, lane], k2[rows, lane], tid[rows, lane]))
+        sizes[l] = np.bincount(lane, minlength=LANES)
+    slot_off = np.zeros(sizes.size + 1, dtype=np.int64)
+    np.cumsum(sizes.reshape(-1), out=slot_off[1:])
+    if parts:
+        sk1, sk2, stid = (np.concatenate(p) for p in zip(*parts))
+    else:
+        sk1 = sk2 = stid = np.zeros(0, dtype=np.int32)
+    return slot_off, sk1, sk2, stid
+
+
+def fingerprint(k1) -> np.ndarray:
+    """16-bit fingerprint of k1 keys (their uint32 bits): the two halves
+    folded by xor.  The kernel compares it before the full keys."""
+    k = np.asarray(k1).astype(np.int64) & 0xFFFFFFFF
+    return ((k ^ (k >> 16)) & 0xFFFF).astype(np.uint16)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def load_length_tables(tables, device) -> DeviceTables:
@@ -109,19 +185,34 @@ def load_length_tables(tables, device) -> DeviceTables:
         [int(s) & 0xFFFFFFFF for s in tables.lane_salts], dtype=np.uint32
     ).view(np.int32)
     rows_off = tuple(int(r) for r in tables.rows_off)
+    max_len = int(tables.max_len)
+
+    slot_off, sk1, sk2, stid = pack_slots(k1, k2, tid, rows_off, max_len)
+    n_slots = int(sk1.shape[0])
+    off_words = _round_up(slot_off.shape[0], 4)
+    image = np.zeros(off_words + _round_up(n_slots, 8) // 2, dtype=np.int32)
+    image[: slot_off.shape[0]] = slot_off
+    image[off_words:].view(np.uint16)[:n_slots] = fingerprint(sk1)
+    keys = np.zeros((max(n_slots, 1), 4), dtype=np.int32)
+    keys[:n_slots, 0] = sk1
+    keys[:n_slots, 1] = sk2
+    keys[:n_slots, 2] = stid
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return DeviceTables(
         packed=dev(packed),
-        rows_off_t=dev(np.asarray(rows_off, dtype=np.int32)),
+        slot_image=dev(image),
+        slot_keys=dev(keys),
         lane_salts_t=dev(salts),
+        off_words=off_words,
+        n_slots=n_slots,
         rows_off=rows_off,
         mult1=int(tables.mult1),
         mult2=int(tables.mult2),
         lane_salts=tuple(int(s) for s in tables.lane_salts),
-        max_len=int(tables.max_len),
+        max_len=max_len,
         unk_id=int(tables.unk_token_id),
     )
 

@@ -1,40 +1,76 @@
-// Word match+commit kernel for Hopper (sm_90a).
+// Word match+commit and emit compaction kernels for Hopper (sm_90a).
 //
-// Replaces wordpiece_tpu/ops/word_kernel_pallas.py::_kernel, the TPU
-// kernel behind word_match_commit_pallas / _multi / _compact.  It computes
-// the same function as the plain PyTorch version in ops/word_kernel.py:
-// for every unit (one row of up to W codepoints, columns >= W read as
-// space) the longest in-window vocabulary hit per position, the greedy
-// walk from position 0, the whole-word UNK rollback, and an emit row of
-// token ids (-2 where nothing is emitted).
+// word_match_commit_kernel replaces wordpiece_tpu/ops/word_kernel_pallas.py
+// ::_kernel, the TPU kernel behind word_match_commit_pallas / _multi /
+// _compact.  It computes the same function as the plain PyTorch version in
+// ops/word_kernel.py: for every unit (one row of up to W codepoints,
+// columns >= W read as space) the greedy walk from position 0 over the
+// longest in-window vocabulary hits, the whole-word UNK rollback, and an
+// emit row of token ids (-2 where nothing is emitted).  It looks up the
+// longest hit only at the positions the walk visits, which are all the
+// commit reads.  It also writes each unit's emit count.
 //
-// What bounds it on this card: dependent probe latency into L2, not
-// device-memory bytes.  A position probes, for each length l in its
-// window, the B_l candidate rows of the length tables at one hashed lane
-// (up to ~250 scattered 16-byte reads per width-7 position for a
-// bert-sized vocabulary).  The tables are one interleaved int4[R, 128]
-// {k1, k2, tid, 0} array (~0.5 MB at bert scale), so a probe is one
-// 16-byte __ldg and the whole table stays L2-resident; nothing else is
-// done about the latency yet.
+// compact_kernel replaces the XLA epilogue of word_match_commit_compact
+// (word_kernel_pallas.py:349-358): from the per-unit counts and their
+// inclusive scan it writes (tid + 2) * 128 + position of every emit in
+// (bucket, unit, position) order, capped, and the total.
 //
-// Layout: a block of 256 threads holds 256 / S units, S = the power of
-// two >= W + 1; thread (g, j) owns position j of unit slot g.  Units are
-// staged in shared memory with a space in every column >= W (the
-// sentinel column included), so the narrow [U, W] matrix is read once
-// and no pad columns cross the bus.  The TPU kernel's 128-lane group
-// packing and its crossbar / roll tricks are TPU layout and are dropped.
+// What bounds the match kernel on this card: the SM's instruction issue
+// and the latency of dependent shared- and global-memory reads, not device
+// memory bytes (a dispatch moves ~1 MB).  The TPU kernel probes every
+// position at every length over B_l rows per lane; on this card that work
+// and its divergence were the cost.  What the design does about it:
+//  - the walk drives the probe: only the positions the greedy walk visits
+//    are probed (about 1.3 per unit of en text instead of W), and the
+//    lengths of a visited position are probed in parallel, one lane each;
+//  - only occupied slots are probed: the tables are packed per (length,
+//    lane), in row order, with empty slots dropped (slot_off gives each
+//    list's range), so a lane's scan ends at its own last token and not at
+//    the longest lane's;
+//  - the list offsets and a 16-bit fingerprint of every slot's k1 key (~66
+//    KB for a bert-sized vocabulary) are staged into shared memory once
+//    per block by one bulk async copy (cp.async.bulk + mbarrier) that
+//    overlaps the first tile's staging; a list is scanned 8 slots per
+//    16-byte load, and only the longest length whose list holds the
+//    fingerprint is confirmed against the full {k1, k2, tid} in global
+//    memory, so a visited position pays one global load.  A fingerprint
+//    collision falls back to the next longest length, so the result is
+//    exact.  When the image does not fit, the same kernel reads it from
+//    global memory (kSharedKeys = false), a layout chosen by size on the
+//    host, or forced by the caller;
+//  - the window, word-prefix and space structure of a unit are bit masks
+//    (ballots), so the walk's steps and the rollback, which runs over the
+//    visited positions only, are a few bit operations each;
+//  - one launch per dispatch: blocks are persistent (one per SM in the
+//    shared-key layout at bert scale) and each of their four 256-thread
+//    groups walks over unit tiles of every bucket, the widest first and
+//    spread over the SMs, so a 2-unit bucket runs beside the large ones
+//    and not after them.
 //
-// Phases: (1) char classes; (2) per-position window and probe; (3) one
-// thread per unit walks the <= W positions serially over shared memory
-// and applies the rollback; (4) every position writes its emit value.
+// Layout of a tile: 256 / S units, S = the power of two >= W + 1; thread
+// (g, j) of a group owns position j of unit slot g.  Units are staged in
+// shared memory with a space in every column >= W (the sentinel column
+// included), so the narrow [U, W] matrix of any element size (1, 2 or 4
+// bytes, per bucket) is read once.  The TPU kernel's 128-lane packing and
+// its crossbar / roll tricks are TPU layout and are dropped.
+//
+// Phases of a tile, each closed by the group's own named barrier: (1)
+// stage the units and their char classes; (2) the unit's position masks;
+// (3) the walk with its probes, then the rollback and the unit's emit
+// count, one thread per unit over its visited positions; (4) every
+// position writes its emit value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // threads of one tile group
+constexpr int kGroups = 4;     // tile groups of one block
+constexpr int kBlock = kThreads * kGroups;
 constexpr int kLanes = 128;
+constexpr int kMaxBuckets = 8;
+constexpr int kCompactThreads = 256;
 constexpr uint32_t kLenMix = 0x9E3779B1u;
 constexpr uint32_t kKindMix = 0x85EBCA77u;
 constexpr uint32_t kSpaceToken = 9601u;  // U+2581
@@ -42,11 +78,19 @@ constexpr uint32_t kSpaceToken = 9601u;  // U+2581
 constexpr uint8_t kSpace = 1;
 constexpr uint8_t kPunct = 2;
 constexpr uint8_t kSpacing = 4;
-constexpr uint8_t kWordPrefix = 8;
 
-constexpr uint8_t kVisited = 1;
-constexpr uint8_t kKilled = 2;
-constexpr uint8_t kSegStart = 4;
+// The buckets of one dispatch, in tile order (widest first).
+struct Buckets {
+  const void* cp[kMaxBuckets];    // unit matrix [units, width]
+  int* out[kMaxBuckets];          // emit matrix int32[units, width]
+  long long units[kMaxBuckets];
+  long long unit_base[kMaxBuckets];  // first unit's index in the counts
+  long long tile_end[kMaxBuckets];   // running sum of tiles, in tile order
+  int width[kMaxBuckets];
+  int stride[kMaxBuckets];  // S
+  int elem[kMaxBuckets];    // bytes per codepoint: 1, 2 or 4
+  int n;
+};
 
 __device__ __forceinline__ bool is_space(uint32_t c) {
   return c == 32u || (c >= 9u && c <= 13u) || c == kSpaceToken;
@@ -66,198 +110,558 @@ __device__ __forceinline__ bool is_chinese(uint32_t c) {
          (c >= 0xF900u && c <= 0xFAFFu) || (c >= 0x2F800u && c <= 0x2FA1Fu);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-word_match_commit_kernel(const T* __restrict__ cp, long long n_units, int W,
-                         int S, const int4* __restrict__ tab,
-                         const int* __restrict__ rows_off,
+__device__ __forceinline__ uint32_t load_cp(const void* base, int elem,
+                                            long long i) {
+  if (elem == 1) return static_cast<const uint8_t*>(base)[i];
+  if (elem == 2) return static_cast<const uint16_t*>(base)[i];
+  return (uint32_t)static_cast<const int32_t*>(base)[i];
+}
+
+// The 16-bit fingerprint of a k1 key (core/length_tables.py:fingerprint).
+__device__ __forceinline__ uint32_t fingerprint(uint32_t k1) {
+  return (k1 ^ (k1 >> 16)) & 0xFFFFu;
+}
+
+// Whether either 16-bit half of x is zero (exact for the pair).
+__device__ __forceinline__ bool has_zero_half(uint32_t x) {
+  return ((x - 0x00010001u) & ~x & 0x80008000u) != 0u;
+}
+
+// Which 16-bit halves of x are zero, as bits 0 (low) and 1 (high).
+__device__ __forceinline__ uint32_t half_eq(uint32_t x) {
+  return (uint32_t)((x & 0xFFFFu) == 0u) | ((uint32_t)(x < 0x10000u) << 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Named barrier of one 256-thread group (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk async copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void stage_async(void* dst, const void* src,
+                                            uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// The probe of one length: its keys, its fingerprint and its (length,
+// lane) list of slots [s0, s1).
+struct ListProbe {
+  int key1, key2, s0, s1;
+  uint32_t fp;
+};
+
+__device__ __forceinline__ ListProbe list_probe(uint32_t h1, uint32_t h2, int l,
+                                                uint32_t kind_mix, const uint32_t* salts,
+                                                const int* offs) {
+  const uint32_t len_mix = (uint32_t)l * kLenMix;
+  const uint32_t salt = salts[l];
+  const int lane = (int)(((h1 ^ (h2 << 1) ^ len_mix ^ kind_mix) * salt) >> (32 - 7));
+  ListProbe p;
+  p.key1 = (int)h1;
+  p.key2 = (int)(h2 ^ len_mix ^ kind_mix);
+  p.s0 = offs[l * kLanes + lane];
+  p.s1 = offs[l * kLanes + lane + 1];
+  p.fp = fingerprint(h1);
+  return p;
+}
+
+// The list's slots that hold the fingerprint: how many, and the last one.
+// 8 slots per 16-byte load; only a chunk that holds the fingerprint in some
+// 16-bit half is resolved into per-slot bits.
+struct FpHits {
+  int n, last;
+};
+
+__device__ __forceinline__ FpHits list_fp_hits(const uint4* fps, const ListProbe& p) {
+  const uint32_t fp2 = p.fp | (p.fp << 16);
+  FpHits h = {0, -1};
+  const int c_end = p.s1 > p.s0 ? (p.s1 + 7) >> 3 : 0;
+  for (int c = p.s0 >> 3; c < c_end; ++c) {
+    const uint4 v = fps[c];
+    if (has_zero_half(v.x ^ fp2) | has_zero_half(v.y ^ fp2) | has_zero_half(v.z ^ fp2) |
+        has_zero_half(v.w ^ fp2)) {
+      // The chunk's matching slots as 8 bits, cut to [s0, s1): a chunk may
+      // start before s0 or end past s1.
+      uint32_t m = half_eq(v.x ^ fp2) | (half_eq(v.y ^ fp2) << 2) |
+                   (half_eq(v.z ^ fp2) << 4) | (half_eq(v.w ^ fp2) << 6);
+      const int lo = p.s0 - c * 8, hi = p.s1 - c * 8;
+      if (lo > 0) m &= 0xFFu << lo;
+      if (hi < 8) m &= (1u << hi) - 1u;
+      if (m) {
+        h.n += __popc(m);
+        h.last = c * 8 + 31 - __clz(m);
+      }
+    }
+  }
+  return h;
+}
+
+// The tid of the list's last slot whose full keys match (row order, as the
+// row scan's last hit wins), or -1.
+__device__ __forceinline__ int confirm_list(const uint4* fps,
+                                            const int4* __restrict__ slot_keys,
+                                            const ListProbe& p) {
+  const uint16_t* fp16 = reinterpret_cast<const uint16_t*>(fps);
+  int tid = -1;
+  for (int s = p.s0; s < p.s1; ++s) {
+    if (fp16[s] == p.fp) {
+      const int4 e = __ldg(slot_keys + s);
+      if (e.x == p.key1 && e.y == p.key2) tid = e.z;
+    }
+  }
+  return tid;
+}
+
+// A unit's bit masks over its positions: S <= 32 positions fit one word
+// (bits >= S are 0), a wider unit takes S / 32 words.  Bits >= W are
+// the pad columns, which read as space.
+struct UnitBits {
+  const uint32_t* words;
+  int n;  // words
+};
+
+__device__ __forceinline__ bool bit_at(UnitBits m, int k) {
+  return (m.words[k >> 5] >> (k & 31)) & 1u;
+}
+
+// The first set bit at or after k, or n * 32 when there is none.
+__device__ __forceinline__ int next_set(UnitBits m, int k) {
+  int w = k >> 5;
+  if (w >= m.n) return m.n * 32;
+  uint32_t v = m.words[w] & (0xFFFFFFFFu << (k & 31));
+  while (!v) {
+    if (++w >= m.n) return m.n * 32;
+    v = m.words[w];
+  }
+  return (w << 5) + __ffs(v) - 1;
+}
+
+template <bool kSharedKeys>
+__global__ void __launch_bounds__(kBlock, 1)
+word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
+                         int off_words, int image_bytes,
+                         const int4* __restrict__ slot_keys,
                          const uint32_t* __restrict__ lane_salts, int max_len,
                          uint32_t mult1, uint32_t mult2, int unk_id,
-                         int* __restrict__ out) {
-  __shared__ uint32_t s_cp[kThreads];
-  __shared__ uint8_t s_cls[kThreads];  // classes, read by the window scan
-  __shared__ uint8_t s_fl[kThreads];   // classes + word prefix, for the walk
-  __shared__ int s_len[kThreads];
-  __shared__ int s_id[kThreads];
-  __shared__ int s_win[kThreads];
-  __shared__ int s_ss[kThreads];
-  __shared__ int s_wn[kThreads];
-  __shared__ uint8_t s_st[kThreads];
+                         int* __restrict__ counts) {
+  // Dynamic: the slot image (offsets, then fingerprints), in the shared
+  // layout.
+  extern __shared__ __align__(128) int s_image[];
+  __shared__ uint32_t s_cp[kBlock];   // the units, pad columns as space
+  __shared__ int s_out[kBlock];       // the emit rows
+  __shared__ uint8_t s_cls[kBlock];   // char classes
+  __shared__ uint8_t s_vpos[kBlock];  // a unit's visited positions, in order
+  __shared__ uint8_t s_vlen[kBlock];  // and their match lengths (0: a fail)
+  __shared__ int s_vid[kBlock];       // and their token ids
+  // Per group and unit: the position masks (kMaskWords words per group).
+  constexpr int kMaskWords = kThreads / 2;
+  __shared__ uint32_t s_space[kGroups * kMaskWords];
+  __shared__ uint32_t s_spacing[kGroups * kMaskWords];
+  __shared__ uint32_t s_punct[kGroups * kMaskWords];
+  __shared__ uint32_t s_prefix[kGroups * kMaskWords];
+  __shared__ uint32_t s_salt[kThreads];  // lane salts | 1; lengths are <= W < 256
+  __shared__ __align__(8) uint64_t s_bar;
 
-  const int t = threadIdx.x;
-  const int units_per_block = kThreads / S;
-  const int g = t / S;
-  const int j = t - g * S;
-  const int gbase = g * S;
-  const long long u = (long long)blockIdx.x * units_per_block + g;
-  const bool valid = g < units_per_block && u < n_units;
-  const bool live = valid && j < W;
-
-  // ---- stage the units; every column >= W reads as space ---------------
-  uint32_t c = 32u;
-  if (live) c = (uint32_t)cp[u * W + j];
-  s_cp[t] = c;
-  uint8_t cls = 0;
-  if (is_space(c)) cls |= kSpace | kSpacing;
-  if (is_punct(c)) cls |= kPunct | kSpacing;
-  if (is_chinese(c)) cls |= kSpacing;
-  s_cls[t] = cls;
-  __syncthreads();
-
-  // ---- word prefix and probe window (src/fast.cpp:38-60) ---------------
-  int window = 1;
-  if (live) {
-    if (j == 0 || (s_cls[t - 1] & kSpacing)) cls |= kWordPrefix;
-    if (cls & kSpacing) cls |= kWordPrefix;
-    if (!(cls & kPunct)) {
-      // Distance to the first spacing char strictly after j, capped at
-      // max_len and at the unit end (column W reads as space).
-      const int lim = min(W, j + max_len);
-      int k = j + 1;
-      while (k < lim && !(s_cls[gbase + k] & kSpacing)) ++k;
-      window = max(k - j, 1);
-    }
+  if ((int)threadIdx.x < kThreads && (int)threadIdx.x <= max_len)
+    s_salt[threadIdx.x] = __ldg(lane_salts + threadIdx.x) | 1u;
+  if (kSharedKeys) {
+    if (threadIdx.x == 0) stage_async(s_image, image, (uint32_t)image_bytes, &s_bar);
   }
+  __syncthreads();  // the salts are in place, the barrier is initialised
+  const int* offs = kSharedKeys ? s_image : image;
+  const uint4* fps = reinterpret_cast<const uint4*>(offs + off_words);
+  bool staged = !kSharedKeys;
 
-  // ---- longest in-window hit (word_kernel.py:99-145) -------------------
-  int best_id = -1;
-  int best_len = 0;
-  if (live) {
-    const uint32_t kind = (cls & kWordPrefix) ? 1u : 0u;
-    const uint32_t kind_mix = kind * kKindMix;
-    uint32_t h1 = 0u, h2 = 0u;
-    const int lmax = min(window, max_len);
-    for (int l = 1; l <= lmax; ++l) {
-      const uint32_t ch = s_cp[gbase + j + l - 1];
-      h1 = h1 * mult1 + ch;
-      h2 = h2 * mult2 + ch;
-      const int r0 = __ldg(rows_off + l);
-      const int r1 = __ldg(rows_off + l + 1);
-      if (r1 == r0) continue;
-      const uint32_t len_mix = (uint32_t)l * kLenMix;
-      const int key1 = (int)h1;
-      const int key2 = (int)(h2 ^ len_mix ^ kind_mix);
-      const uint32_t salt = __ldg(lane_salts + l) | 1u;
-      const int lane =
-          (int)(((h1 ^ (h2 << 1) ^ len_mix ^ kind_mix) * salt) >> (32 - 7));
-      const int4* row = tab + (long long)r0 * kLanes + lane;
-      // Rows in order, last hit wins (as the sequential row scan does).
-#pragma unroll 4
-      for (int r = r0; r < r1; ++r, row += kLanes) {
-        const int4 e = __ldg(row);
-        if (e.x == key1 && e.y == key2 && e.z >= 0) {
-          best_id = e.z;
-          best_len = l;
+  const int g = threadIdx.x / kThreads;
+  const int t = threadIdx.x - g * kThreads;
+  const int base = g * kThreads;  // the group's scratch
+  const int lane = threadIdx.x & 31;
+  const long long n_tiles = d.tile_end[d.n - 1];
+  // Tile t goes to block t % gridDim.x, so the widest tiles (first) and
+  // any tiles past one round spread over the SMs.
+  for (long long tile = (long long)g * gridDim.x + blockIdx.x; tile < n_tiles;
+       tile += (long long)gridDim.x * kGroups) {
+    int b = 0;
+    while (tile >= d.tile_end[b]) ++b;
+    const long long tile0 = b ? d.tile_end[b - 1] : 0;
+    const int W = d.width[b];
+    const int S = d.stride[b];
+    const int slot = t / S;
+    const int j = t - slot * S;
+    const int gbase = base + slot * S;
+    const long long u = (tile - tile0) * (kThreads / S) + slot;
+    const bool valid = u < d.units[b];
+    const bool live = valid && j < W;
+    const int me = base + t;
+    // The unit's mask words: one word for S <= 32, else S / 32.
+    const int n_words = S > 32 ? S >> 5 : 1;
+    const int mbase = g * kMaskWords + slot * n_words;
+
+    // ---- stage the units; every column >= W reads as space -------------
+    uint32_t c = 32u;
+    if (live) c = load_cp(d.cp[b], d.elem[b], u * W + j);
+    s_cp[me] = c;
+    uint8_t cls = 0;
+    if (is_space(c)) cls |= kSpace | kSpacing;
+    if (is_punct(c)) cls |= kPunct | kSpacing;
+    if (is_chinese(c)) cls |= kSpacing;
+    s_cls[me] = cls;
+    s_out[me] = -2;
+    group_sync(g);
+
+    // ---- position masks (src/fast.cpp:38-60) ----------------------------
+    // Word prefix: the unit start, a spacing char, or right after one.
+    const bool prefix = j == 0 || (cls & kSpacing) || (s_cls[me - 1] & kSpacing);
+    {
+      const uint32_t sp = __ballot_sync(0xFFFFFFFFu, cls & kSpace);
+      const uint32_t sg = __ballot_sync(0xFFFFFFFFu, cls & kSpacing);
+      const uint32_t pu = __ballot_sync(0xFFFFFFFFu, cls & kPunct);
+      const uint32_t pr = __ballot_sync(0xFFFFFFFFu, prefix);
+      if ((j & 31) == 0) {  // the first lane of each unit word writes it
+        const int sh = S < 32 ? lane : 0;
+        const uint32_t keep = S < 32 ? (1u << S) - 1u : 0xFFFFFFFFu;
+        const int w = mbase + (j >> 5);
+        s_space[w] = (sp >> sh) & keep;
+        s_spacing[w] = (sg >> sh) & keep;
+        s_punct[w] = (pu >> sh) & keep;
+        s_prefix[w] = (pr >> sh) & keep;
+      }
+    }
+    group_sync(g);
+
+    // ---- the greedy walk, probing only the positions it visits ----------
+    // (ops/word_kernel.py:86-141 for the probe, :144-183 for the walk.)  The
+    // G = min(S, 32) lanes of a unit walk it together: at each visited
+    // position lane q scans the lists of lengths q + 1, q + 1 + G, ...
+    // within the window, the unit takes the longest length whose list holds
+    // the fingerprint, and its lane confirms the full keys in global
+    // memory; on a miss (a fingerprint collision) the next longest is
+    // tried, so the result is exact.  Positions the walk skips are never
+    // probed: the commit reads nothing of them.
+    if (!staged) {
+      mbar_wait(&s_bar, 0);
+      staged = true;
+    }
+    const UnitBits m_space = {s_space + mbase, n_words};
+    const UnitBits m_spacing = {s_spacing + mbase, n_words};
+    const UnitBits m_punct = {s_punct + mbase, n_words};
+    const UnitBits m_prefix = {s_prefix + mbase, n_words};
+    const int G = min(S, 32);
+    const unsigned umask = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
+    int n_vis = 0;
+    int p = 0;
+    bool walking = valid && j < G;
+    while (__any_sync(0xFFFFFFFFu, walking)) {
+      const uint32_t* ch = s_cp + gbase + p;
+      // The window (src/fast.cpp:53-60): up to the first spacing char
+      // strictly after p, capped at max_len and the unit end; 1 for punct.
+      int window = 1;
+      bool pre = false;
+      if (walking) {
+        pre = bit_at(m_prefix, p);
+        if (!bit_at(m_punct, p))
+          window = max(min(min(next_set(m_spacing, p + 1), W), p + max_len) - p, 1);
+      }
+      const int lmax = walking ? min(window, max_len) : 0;
+      const uint32_t kind_mix = pre ? kKindMix : 0u;
+      bool resolving = walking;  // uniform over a unit's lanes
+      int hit_l = 0, hit_tid = -1;
+      int below = lmax + 1;  // this lane rescans its lengths below this
+      int my_l = 0;          // this lane's longest fingerprint hit
+      ListProbe mine;
+      FpHits mine_hits;
+      while (__any_sync(0xFFFFFFFFu, resolving)) {
+        if (resolving && below > 0) {
+          my_l = 0;
+          uint32_t h1 = 0u, h2 = 0u;
+          int k = 0;
+          for (int l = j + 1; l < below; l += G) {
+            for (; k < l; ++k) {
+              h1 = h1 * mult1 + ch[k];
+              h2 = h2 * mult2 + ch[k];
+            }
+            const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
+            const FpHits hits = list_fp_hits(fps, pr);
+            if (hits.n) {
+              my_l = l;
+              mine = pr;
+              mine_hits = hits;
+            }
+          }
+          below = 0;
+        }
+        // The unit's longest candidate length; its lane confirms it.
+        int best_l = resolving ? my_l : 0;
+        for (int o = G >> 1; o > 0; o >>= 1)
+          best_l = max(best_l, __shfl_xor_sync(0xFFFFFFFFu, best_l, o));
+        const bool owner = resolving && best_l > 0 && my_l == best_l;
+        const unsigned owners = __ballot_sync(0xFFFFFFFFu, owner) & umask;
+        int tid = -1;
+        if (owner) {
+          if (mine_hits.n == 1) {
+            const int4 e = __ldg(slot_keys + mine_hits.last);
+            if (e.x == mine.key1 && e.y == mine.key2) tid = e.z;
+          } else {
+            tid = confirm_list(fps, slot_keys, mine);
+          }
+        }
+        tid = __shfl_sync(0xFFFFFFFFu, tid, owners ? __ffs(owners) - 1 : lane);
+        if (resolving) {
+          if (best_l == 0) {
+            resolving = false;  // no list holds the fingerprint: no hit
+          } else if (tid >= 0) {
+            hit_l = best_l;
+            hit_tid = tid;
+            resolving = false;
+          } else if (owner) {
+            below = my_l;  // a fingerprint collision: look below it
+          }
         }
       }
+      if (walking) {
+        if (j == 0) {
+          s_vpos[gbase + n_vis] = (uint8_t)p;
+          s_vlen[gbase + n_vis] = (uint8_t)hit_l;
+          s_vid[gbase + n_vis] = hit_tid;
+        }
+        ++n_vis;
+        // The next non-space at or after the landing (ops/word_kernel.py:
+        // 164-174); a fail lands on the next word prefix after its window.
+        // Every step advances >= 1 position, so the walk ends at W.
+        const int land = hit_l > 0 ? min(p + hit_l, W)
+                                   : min(next_set(m_prefix, min(p + window, W)), W);
+        int q = land;
+        while (q < W && bit_at(m_space, q)) ++q;
+        p = q;
+        walking = p < W;
+      }
     }
-  }
-  s_fl[t] = cls;
-  s_len[t] = best_len;
-  s_id[t] = best_id;
-  s_win[t] = window;
-  s_st[t] = 0;
-  __syncthreads();
 
-  // ---- walk + rollback, one thread per unit (word_kernel.py:148-215) ---
-  if (valid && j == 0) {
-    int* ss = s_ss + gbase;  // next non-space at or after k; sentinel W
-    int* wn = s_wn + gbase;  // next word prefix at or after k; sentinel W
-    const uint8_t* cl = s_fl + gbase;
-    const int* ln = s_len + gbase;
-    const int* wi = s_win + gbase;
-    uint8_t* st = s_st + gbase;
-    ss[W] = W;
-    wn[W] = W;
-    for (int k = W - 1; k >= 0; --k) {
-      ss[k] = (cl[k] & kSpace) ? ss[k + 1] : k;
-      wn[k] = (cl[k] & kWordPrefix) ? k : wn[k + 1];
-    }
-    // Every step advances >= 1 position, so the walk ends at W.
-    int p = 0;
-    while (p < W) {
-      st[p] = kVisited;
-      p = ln[p] > 0 ? ss[min(p + ln[p], W)] : ss[wn[min(p + wi[p], W)]];
-    }
+    // ---- rollback + count over the visited positions, in reverse --------
     // A visited fail kills every emission back to its segment start; the
     // strict < keeps a fail that IS the next segment start in that later
-    // segment.
-    int next_fail = W + 1;  // first visited fail at or after k
-    int next_seg = W + 1;   // first segment start strictly after k
-    for (int k = W - 1; k >= 0; --k) {
-      if (!(st[k] & kVisited)) continue;
-      if (ln[k] == 0) next_fail = k;
-      uint8_t s = kVisited;
-      if (next_fail < next_seg) s |= kKilled;
-      if (cl[k] & kWordPrefix) {
-        s |= kSegStart;
-        next_seg = k;
+    // segment.  Empty (all-space) rows emit nothing.
+    if (valid && j == 0) {
+      const bool empty_row = bit_at(m_space, 0);
+      int n_emit = 0;
+      int next_fail = W + 1;  // first visited fail at or after k
+      int next_seg = W + 1;   // first segment start strictly after k
+      for (int i = n_vis - 1; i >= 0; --i) {
+        const int k = s_vpos[gbase + i];
+        const int ln = s_vlen[gbase + i];
+        if (ln == 0) next_fail = k;
+        const bool killed = next_fail < next_seg;
+        const bool seg_start = bit_at(m_prefix, k);
+        if (seg_start) next_seg = k;
+        if (!empty_row && ((ln > 0 && !killed) || (seg_start && killed))) {
+          s_out[gbase + k] = killed ? unk_id : s_vid[gbase + i];
+          ++n_emit;
+        }
       }
-      st[k] = s;
+      counts[d.unit_base[b] + u] = n_emit;
     }
-  }
-  __syncthreads();
+    group_sync(g);
 
-  // ---- emit -------------------------------------------------------------
-  if (live) {
-    const uint8_t s = s_st[t];
-    const bool killed = s & kKilled;
-    const bool matched = s_len[t] > 0;
-    // Empty (all-space) rows emit nothing.
-    const bool empty_row = s_fl[gbase] & kSpace;
-    const bool emit = (s & kVisited) && !empty_row &&
-                      ((matched && !killed) || ((s & kSegStart) && killed));
-    out[u * W + j] = emit ? (killed ? unk_id : s_id[t]) : -2;
+    // ---- emit -----------------------------------------------------------
+    if (live) d.out[b][u * W + j] = s_out[me];
+    group_sync(g);  // the next tile reuses the group's scratch
+  }
+  // A block never exits with its bulk copy still in flight.
+  if (!staged) mbar_wait(&s_bar, 0);
+}
+
+// One thread per unit: its emits, at its exclusive offset, capped.
+__global__ void __launch_bounds__(kCompactThreads)
+compact_kernel(const Buckets d, const int* __restrict__ incl, long long n,
+               int cap, int* __restrict__ fused) {
+  const long long v = (long long)blockIdx.x * kCompactThreads + threadIdx.x;
+  if (v == 0) fused[0] = n ? incl[n - 1] : 0;
+  if (v >= n) return;
+  int b = 0;
+  while (v < d.unit_base[b] || v >= d.unit_base[b] + d.units[b]) ++b;
+  const int W = d.width[b];
+  const int* __restrict__ row = d.out[b] + (v - d.unit_base[b]) * W;
+  long long k = (long long)incl[v] - fused[1 + v];
+  int* __restrict__ dst = fused + 1 + n;
+  // The row's loads do not wait for the stores before them.
+#pragma unroll 8
+  for (int j = 0; j < W; ++j) {
+    const int e = row[j];
+    if (e != -2) {
+      if (k < cap) dst[k] = (e + 2) * 128 + j;
+      ++k;
+    }
   }
 }
 
-template <typename T>
-void launch(const void* cp, long long n_units, int W, int S, const int4* tab,
-            const int* rows_off, const uint32_t* lane_salts, int max_len,
-            uint32_t mult1, uint32_t mult2, int unk_id, int* out,
-            cudaStream_t stream) {
-  const int units_per_block = kThreads / S;
-  const long long blocks = (n_units + units_per_block - 1) / units_per_block;
-  word_match_commit_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(cp), n_units, W, S, tab, rows_off, lane_salts,
-      max_len, mult1, mult2, unk_id, out);
+// Fills `d` from the caller's bucket arrays (caller order); entries are
+// stored widest first.  `cps`/`elem` may be null (the compaction).
+int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
+                 const long long* units, const int* widths, void* const* outs,
+                 long long* total_units) {
+  if (n < 1 || n > kMaxBuckets) return cudaErrorInvalidValue;
+  long long unit_base[kMaxBuckets];
+  int order[kMaxBuckets];
+  long long acc = 0;
+  for (int i = 0; i < n; ++i) {
+    if (widths[i] < 1 || widths[i] >= kThreads || units[i] < 0)
+      return cudaErrorInvalidValue;
+    if (elem && elem[i] != 1 && elem[i] != 2 && elem[i] != 4)
+      return cudaErrorInvalidValue;
+    unit_base[i] = acc;
+    acc += units[i];
+    int k = i;  // stable insertion, widest first
+    while (k > 0 && widths[order[k - 1]] < widths[i]) {
+      order[k] = order[k - 1];
+      --k;
+    }
+    order[k] = i;
+  }
+  long long tiles = 0;
+  for (int k = 0; k < n; ++k) {
+    const int i = order[k];
+    int S = 1;
+    while (S < widths[i] + 1) S <<= 1;
+    const int per_tile = kThreads / S;
+    tiles += (units[i] + per_tile - 1) / per_tile;
+    d->cp[k] = cps ? cps[i] : nullptr;
+    d->out[k] = static_cast<int*>(outs[i]);
+    d->units[k] = units[i];
+    d->unit_base[k] = unit_base[i];
+    d->tile_end[k] = tiles;
+    d->width[k] = widths[i];
+    d->stride[k] = S;
+    d->elem[k] = elem ? elem[i] : 4;
+  }
+  d->n = n;
+  *total_units = acc;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for arguments the kernel
-// does not take.  Launches on `stream`, never synchronises.
-extern "C" int wp_word_match_commit(const void* cp, int cp_bytes,
-                                    long long n_units, int width,
-                                    const void* tab, const void* rows_off,
-                                    const void* lane_salts, int max_len,
-                                    unsigned int mult1, unsigned int mult2,
-                                    int unk_id, void* out, void* stream) {
-  if (width < 1 || width >= kThreads || n_units < 0) return cudaErrorInvalidValue;
-  if (n_units == 0) return cudaSuccess;
-  int S = 1;
-  while (S < width + 1) S <<= 1;
-  const int4* tb = static_cast<const int4*>(tab);
-  const int* ro = static_cast<const int*>(rows_off);
-  const uint32_t* ls = static_cast<const uint32_t*>(lane_salts);
-  int* o = static_cast<int*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cp_bytes) {
-    case 1:
-      launch<uint8_t>(cp, n_units, width, S, tb, ro, ls, max_len, mult1, mult2,
-                      unk_id, o, s);
-      break;
-    case 2:
-      launch<uint16_t>(cp, n_units, width, S, tb, ro, ls, max_len, mult1, mult2,
-                       unk_id, o, s);
-      break;
-    case 4:
-      launch<int32_t>(cp, n_units, width, S, tb, ro, ls, max_len, mult1, mult2,
-                      unk_id, o, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+// Plain C entry points (loaded with ctypes).  Each returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.  Launches on `stream`, never
+// synchronises, allocates nothing.
+
+// Match+commit of every bucket in one launch.  `image` is int32[image_words]:
+// the (max_len + 1) * 128 + 1 slot offsets, padded to off_words, then the
+// slots' 16-bit k1 fingerprints, padded to 8-slot chunks; `slot_keys` is
+// int4[slots] {k1, k2, tid, 0}.  `counts` receives each unit's emit count
+// (caller order).  force_global != 0 reads the image from global memory
+// even when it fits in shared memory.  *mode_out is 0 (shared keys), 1
+// (global keys) or -1 (no tiles: nothing launched).
+extern "C" int wp_word_match_commit(
+    int n_buckets, const void* const* cps, const int* elem_bytes,
+    const long long* n_units, const int* widths, void* const* outs,
+    const void* image, int off_words, int image_words, const void* slot_keys,
+    const void* lane_salts, int max_len, unsigned int mult1, unsigned int mult2,
+    int unk_id, void* counts, int force_global, int* mode_out, void* stream) {
+  *mode_out = -1;
+  Buckets d;
+  long long total = 0;
+  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, &total);
+  if (rc != cudaSuccess) return rc;
+  if (off_words % 4 || image_words % 4 || image_words < off_words || max_len < 0)
+    return cudaErrorInvalidValue;
+  const long long n_tiles = d.tile_end[d.n - 1];
+  if (n_tiles == 0) return cudaSuccess;
+
+  int dev = 0, sms = 0, optin = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return rc;
+  if ((rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return rc;
+  cudaFuncAttributes fa;
+  if ((rc = cudaFuncGetAttributes(&fa, word_match_commit_kernel<true>)) != cudaSuccess) return rc;
+  const long long image_bytes = (long long)image_words * 4;
+  // The layout is chosen by size: shared keys when the image fits beside
+  // the kernel's static shared memory and one block still fits on an SM.
+  bool shared = !force_global && image_bytes + (long long)fa.sharedSizeBytes <= optin;
+  int per_sm = 0;
+  if (shared) {
+    rc = cudaFuncSetAttribute(word_match_commit_kernel<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)image_bytes);
+    if (rc != cudaSuccess) return rc;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, word_match_commit_kernel<true>,
+                                                       kBlock, (size_t)image_bytes);
+    if (rc != cudaSuccess) return rc;
+    shared = per_sm > 0;
   }
+  if (!shared) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, word_match_commit_kernel<false>,
+                                                       kBlock, 0);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (per_sm < 1) per_sm = 1;  // the launch itself then reports the failure
+  // As many blocks as fit, but no block without a tile.
+  long long blocks = (long long)sms * per_sm;
+  if (blocks > n_tiles) blocks = n_tiles;
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* img = static_cast<const int*>(image);
+  const int4* kt = static_cast<const int4*>(slot_keys);
+  const uint32_t* ls = static_cast<const uint32_t*>(lane_salts);
+  int* cnt = static_cast<int*>(counts);
+  if (shared) {
+    word_match_commit_kernel<true><<<(unsigned)blocks, kBlock, (size_t)image_bytes, s>>>(
+        d, img, off_words, (int)image_bytes, kt, ls, max_len, mult1, mult2, unk_id, cnt);
+  } else {
+    word_match_commit_kernel<false><<<(unsigned)blocks, kBlock, 0, s>>>(
+        d, img, off_words, (int)image_bytes, kt, ls, max_len, mult1, mult2, unk_id, cnt);
+  }
+  *mode_out = shared ? 0 : 1;
+  return (int)cudaGetLastError();
+}
+
+// The compact vector int32[1 + n + cap] from the emit matrices: `fused[1 :
+// 1 + n]` already holds the per-unit counts (caller order), `incl` their
+// inclusive scan; writes fused[0] = total and the first `cap` entries.
+extern "C" int wp_compact_emits(int n_buckets, void* const* emits, const long long* n_units,
+                                const int* widths, const void* incl, void* fused, int cap,
+                                void* stream) {
+  Buckets d;
+  long long total = 0;
+  int rc = fill_buckets(&d, n_buckets, nullptr, nullptr, n_units, widths, emits, &total);
+  if (rc != cudaSuccess) return rc;
+  if (cap < 0) return cudaErrorInvalidValue;
+  const long long blocks = total ? (total + kCompactThreads - 1) / kCompactThreads : 1;
+  compact_kernel<<<(unsigned)blocks, kCompactThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, static_cast<const int*>(incl), total, cap, static_cast<int*>(fused));
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,9 @@ the per-occurrence id stream is the concatenation of per-unit streams.
 
 Pipeline:
  host C++ : segment + dedupe + fill unique units into width buckets
- device   : the CUDA match+commit kernel per bucket, then a compact
-            vector of the emitted ids (ops/word_kernel_cuda.py)
+ device   : one CUDA match+commit launch for all buckets, then the
+            compaction kernel's vector of the emitted ids
+            (ops/word_kernel_cuda.py)
  host C++ : expand unique token lists back to the occurrence stream
  fallback : units longer than the widest bucket (rare) use the native
             scalar encoder — identical semantics, host-verified in tests.

@@ -1,25 +1,36 @@
-"""Wrappers of the hand-written CUDA word match+commit kernel.
+"""Wrappers of the hand-written CUDA kernels of the word engine.
 
-The kernel (csrc/word_kernel.cu) replaces the TPU kernel
-wordpiece_tpu/ops/word_kernel_pallas.py::_kernel.  It is compiled with
-nvcc for sm_90a into a library with a plain C interface, at first use,
-into this package's build/ directory (ignored by git), and loaded with
-ctypes.  Nothing here is compiled or imported from CUDA at module import.
+Two kernels live in csrc/word_kernel.cu:
+  - the match+commit kernel, which replaces the TPU kernel
+    wordpiece_tpu/ops/word_kernel_pallas.py::_kernel: one launch per
+    dispatch covers every bucket (word_match_commit_multi);
+  - the compaction kernel, which replaces the XLA epilogue of the JAX
+    package's word_match_commit_compact (compact_from_counts).
+They are compiled with nvcc for sm_90a into one library with a plain C
+interface, at first use, into this package's build/ directory (ignored by
+git), and loaded with ctypes.  Nothing here is compiled or imported from
+CUDA at module import.
 
-Each wrapper takes the plain version (ops/word_kernel.py) only for
-tensors that lie on the CPU.  For a CUDA tensor it launches the kernel
-on the current stream, or raises; it never falls back.
-`word_match_commit_bucket.launches` counts the kernel's launches.
+Each wrapper takes its kernel's plain version only for tensors that lie
+on the CPU (ops/word_kernel.py for the match, compact_emits for the
+compaction).  For a CUDA tensor it launches the kernel on the current
+stream, or raises; it never falls back.  Counts of launches:
+`word_match_commit_multi.launches` (all launches; one per dispatch),
+`word_match_commit_multi.launches_global` (those that read the slot
+image, the list offsets and key fingerprints, from global memory instead
+of staging it in shared memory) and `compact_from_counts.launches`.
 
 Layouts:
   - a bucket is a narrow unit matrix uint8/uint16/int32[U, W] (W = the
-    bucket width, contiguous); columns >= W read as space;
+    bucket width, contiguous); columns >= W read as space; the buckets of
+    one dispatch may differ in dtype;
   - the emit matrix is int32[U, W]: a token id per emitting position,
     -2 elsewhere;
   - the compact vector (word_match_commit_compact) is int32[1 + U_total
     + cap]: the total id count, the per-unit counts of every bucket in
     order, then (token_id + 2) * 128 + position for every emitted id in
-    (bucket, unit, position) order, capped at `cap` entries.
+    (bucket, unit, position) order, capped at `cap` entries.  Entries
+    past min(total, cap) are undefined.
 """
 
 from __future__ import annotations
@@ -46,10 +57,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+MAX_BUCKETS = 8  # kMaxBuckets of the kernel's bucket descriptor
 
 _LOCK = threading.Lock()
 _LIB = None
 build_log = ""  # nvcc's output of the last build (ptxas -v: regs, smem, spills)
+
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 
 
 def _nvcc() -> str:
@@ -59,7 +76,7 @@ def _nvcc() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA word kernel cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA word kernels cannot be built")
     return found
 
 
@@ -89,19 +106,37 @@ def build(*, force: bool = False):
         fn = lib.wp_word_match_commit
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_void_p,  # cp
-            ctypes.c_int,  # bytes per codepoint
-            ctypes.c_longlong,  # n_units
-            ctypes.c_int,  # width
-            ctypes.c_void_p,  # packed tables int4[R, 128]
-            ctypes.c_void_p,  # rows_off int32[max_len + 2]
-            ctypes.c_void_p,  # lane_salts uint32[max_len + 1]
+            ctypes.c_int,  # n_buckets
+            _PP,  # unit matrices
+            _PI,  # bytes per codepoint, per bucket
+            _PLL,  # units, per bucket
+            _PI,  # widths
+            _PP,  # emit matrices int32[U, W]
+            _P,  # slot image int32[image words]: offsets, fingerprints
+            ctypes.c_int,  # off_words
+            ctypes.c_int,  # image words
+            _P,  # slot keys int32[slots, 4] {k1, k2, tid, 0}
+            _P,  # lane_salts uint32[max_len + 1]
             ctypes.c_int,  # max_len
             ctypes.c_uint,  # mult1
             ctypes.c_uint,  # mult2
             ctypes.c_int,  # unk_id
-            ctypes.c_void_p,  # out int32[U, W]
-            ctypes.c_void_p,  # cudaStream_t
+            _P,  # per-unit counts int32[U_total]
+            ctypes.c_int,  # force the global-key layout
+            _PI,  # out: the layout launched (0 shared, 1 global, -1 none)
+            _P,  # cudaStream_t
+        ]
+        fn = lib.wp_compact_emits
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int,  # n_buckets
+            _PP,  # emit matrices
+            _PLL,  # units
+            _PI,  # widths
+            _P,  # inclusive scan of the counts, int32[U_total]
+            _P,  # the compact vector int32[1 + U_total + cap]
+            ctypes.c_int,  # cap
+            _P,  # cudaStream_t
         ]
         _LIB = lib
         return lib
@@ -110,62 +145,99 @@ def build(*, force: bool = False):
 _CP_DTYPES = (torch.uint8, torch.uint16, torch.int32)
 
 
-def word_match_commit_bucket(cp: torch.Tensor, tables: DeviceTables) -> torch.Tensor:
-    """One bucket: narrow unit matrix [U, W] -> emit int32[U, W]."""
-    if cp.dim() != 2:
-        raise ValueError(f"unit matrix must be 2-D, got shape {tuple(cp.shape)}")
-    width = int(cp.shape[1])
-    if tables.packed.device != cp.device:
-        raise ValueError(f"tables on {tables.packed.device}, units on {cp.device}")
-    if cp.device.type == "cpu":
-        return word_match_commit(
-            cp, tables.k1, tables.k2, tables.tid, width=width, **tables.statics
-        )
-    if cp.device.type != "cuda":
-        raise ValueError(f"unsupported device {cp.device}")
-    if cp.dtype not in _CP_DTYPES:
-        raise TypeError(f"unit matrix dtype {cp.dtype} not in {_CP_DTYPES}")
-    if not cp.is_contiguous():
-        raise ValueError("unit matrix must be contiguous")
-    if not 1 <= width <= 255:
-        raise ValueError(f"width {width} outside the kernel's 1..255")
-    n_units = int(cp.shape[0])
-    out = torch.empty((n_units, width), dtype=torch.int32, device=cp.device)
-    if n_units == 0:
-        return out
+def _arrays(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def word_match_commit_multi(
+    cps, tables: DeviceTables, *, counts: torch.Tensor | None = None,
+    global_keys: bool = False,
+) -> list[torch.Tensor]:
+    """Every bucket's emit matrix int32[U, W], in ONE kernel launch on the
+    card.  `counts` (int32[sum of U], optional) receives each unit's emit
+    count, buckets in order.  `global_keys` forces the kernel to read the
+    slot image from global memory even where it fits in shared memory
+    (the smoke test holds that layout against the plain version);
+    otherwise the layout is chosen by size."""
+    cps = list(cps)
+    for cp in cps:
+        if cp.dim() != 2:
+            raise ValueError(f"unit matrix must be 2-D, got shape {tuple(cp.shape)}")
+        if cp.device != tables.packed.device:
+            raise ValueError(f"tables on {tables.packed.device}, units on {cp.device}")
+    dev = tables.packed.device
+    if dev.type == "cpu":
+        emits = [
+            word_match_commit(
+                cp, tables.k1, tables.k2, tables.tid, width=int(cp.shape[1]),
+                **tables.statics,
+            )
+            for cp in cps
+        ]
+        if counts is not None and emits:
+            counts.copy_(torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits]))
+        return emits
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 1 <= len(cps) <= MAX_BUCKETS:
+        raise ValueError(f"{len(cps)} buckets: the kernel takes 1..{MAX_BUCKETS}")
+    for cp in cps:
+        if cp.dtype not in _CP_DTYPES:
+            raise TypeError(f"unit matrix dtype {cp.dtype} not in {_CP_DTYPES}")
+        if not cp.is_contiguous():
+            raise ValueError("unit matrix must be contiguous")
+        if not 1 <= cp.shape[1] <= 255:
+            raise ValueError(f"width {cp.shape[1]} outside the kernel's 1..255")
+    units = [int(cp.shape[0]) for cp in cps]
+    widths = [int(cp.shape[1]) for cp in cps]
+    outs = [torch.empty((u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
+    n = sum(units)
+    if counts is None:
+        counts = torch.empty(n, dtype=torch.int32, device=dev)
+    elif counts.shape != (n,) or counts.dtype != torch.int32 or counts.device != dev:
+        raise ValueError(f"counts must be int32[{n}] on {dev}")
+    if n == 0:
+        return outs
     lib = build()
+    mode = ctypes.c_int(-1)
     rc = lib.wp_word_match_commit(
-        cp.data_ptr(),
-        cp.element_size(),
-        n_units,
-        width,
-        tables.packed.data_ptr(),
-        tables.rows_off_t.data_ptr(),
+        len(cps),
+        _arrays(ctypes.c_void_p, [cp.data_ptr() for cp in cps]),
+        _arrays(ctypes.c_int, [cp.element_size() for cp in cps]),
+        _arrays(ctypes.c_longlong, units),
+        _arrays(ctypes.c_int, widths),
+        _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        tables.slot_image.data_ptr(),
+        tables.off_words,
+        int(tables.slot_image.shape[0]),
+        tables.slot_keys.data_ptr(),
         tables.lane_salts_t.data_ptr(),
         tables.max_len,
         tables.mult1 & 0xFFFFFFFF,
         tables.mult2 & 0xFFFFFFFF,
         tables.unk_id,
-        out.data_ptr(),
-        torch.cuda.current_stream(cp.device).cuda_stream,
+        counts.data_ptr(),
+        int(global_keys),
+        ctypes.byref(mode),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"word_match_commit kernel launch failed: CUDA error {rc}")
-    word_match_commit_bucket.launches += 1
-    return out
+    if mode.value >= 0:  # -1: every bucket was empty, nothing launched
+        word_match_commit_multi.launches += 1
+        if mode.value == 1:
+            word_match_commit_multi.launches_global += 1
+    return outs
 
 
-word_match_commit_bucket.launches = 0
-
-
-def word_match_commit_multi(cps, tables: DeviceTables) -> list[torch.Tensor]:
-    """Every bucket's emit matrix (one kernel launch per bucket)."""
-    return [word_match_commit_bucket(cp, tables) for cp in cps]
+word_match_commit_multi.launches = 0
+word_match_commit_multi.launches_global = 0
 
 
 def compact_emits(emits, cap: int) -> torch.Tensor:
-    """Emit matrices -> the compact vector (module docstring), with torch
-    ops on the emits' device and no host synchronisation."""
+    """The compaction's plain version: emit matrices -> the compact vector
+    (module docstring), with torch ops on the emits' device and no host
+    synchronisation."""
     dev = emits[0].device
     counts = torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits])
     n = counts.shape[0]
@@ -178,8 +250,7 @@ def compact_emits(emits, cap: int) -> torch.Tensor:
     base = 0
     for e in emits:
         u, w = e.shape
-        if w > 128:
-            raise ValueError(f"width {w}: positions must fit the 7-bit field")
+        _check_position_field(w)
         if u == 0:
             continue
         mask = e != -2
@@ -192,13 +263,75 @@ def compact_emits(emits, cap: int) -> torch.Tensor:
     return out[: 1 + n + cap]
 
 
-def word_match_commit_compact(cps, tables: DeviceTables, *, cap: int):
+def _check_position_field(w: int) -> None:
+    if w > 128:
+        raise ValueError(f"width {w}: positions must fit the 7-bit field")
+
+
+def compact_from_counts(emits, fused: torch.Tensor, cap: int) -> torch.Tensor:
+    """The compaction kernel: `fused` is the compact vector int32[1 + n +
+    cap] whose counts segment fused[1 : 1 + n] already holds each unit's
+    emit count (the match kernel writes it).  One cumsum over the counts,
+    then one launch writes fused[0] (the total) and the capped entries.
+    Returns `fused`."""
+    emits = list(emits)
+    units = [int(e.shape[0]) for e in emits]
+    widths = [int(e.shape[1]) for e in emits]
+    n = sum(units)
+    if fused.dim() != 1 or fused.shape[0] != 1 + n + cap or fused.dtype != torch.int32:
+        raise ValueError(f"compact vector must be int32[{1 + n + cap}]")
+    for w in widths:
+        _check_position_field(w)
+    if fused.device.type == "cpu":
+        fused.copy_(compact_emits(emits, cap))
+        return fused
+    if fused.device.type != "cuda":
+        raise ValueError(f"unsupported device {fused.device}")
+    if not 1 <= len(emits) <= MAX_BUCKETS:
+        raise ValueError(f"{len(emits)} buckets: the kernel takes 1..{MAX_BUCKETS}")
+    for e in emits:
+        if e.device != fused.device or e.dtype != torch.int32 or not e.is_contiguous():
+            raise ValueError("emit matrices must be contiguous int32 on the vector's device")
+    incl = torch.cumsum(fused[1 : 1 + n], 0, dtype=torch.int32)
+    lib = build()
+    rc = lib.wp_compact_emits(
+        len(emits),
+        _arrays(ctypes.c_void_p, [e.data_ptr() for e in emits]),
+        _arrays(ctypes.c_longlong, units),
+        _arrays(ctypes.c_int, widths),
+        incl.data_ptr(),
+        fused.data_ptr(),
+        cap,
+        torch.cuda.current_stream(fused.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"compaction kernel launch failed: CUDA error {rc}")
+    compact_from_counts.launches += 1
+    return fused
+
+
+compact_from_counts.launches = 0
+
+
+def word_match_commit_compact(
+    cps, tables: DeviceTables, *, cap: int, global_keys: bool = False
+):
     """All buckets, then the compact vector (the counterpart of
-    wordpiece_tpu's word_match_commit_compact).  Returns (compact vector,
-    emit matrices): the emits stay on the device for the caller's
-    full-emit fallback when the total exceeds `cap`."""
-    emits = word_match_commit_multi(cps, tables)
-    return compact_emits(emits, cap), emits
+    wordpiece_tpu's word_match_commit_compact): on the card one
+    match+commit launch that also writes the per-unit counts, one cumsum,
+    one compaction launch.  Returns (compact vector, emit matrices): the
+    emits stay on the device for the caller's full-emit fallback when the
+    total exceeds `cap`."""
+    cps = list(cps)
+    if tables.packed.device.type == "cpu":
+        emits = word_match_commit_multi(cps, tables)
+        return compact_emits(emits, cap), emits
+    n = sum(int(cp.shape[0]) for cp in cps)
+    fused = torch.empty(1 + n + cap, dtype=torch.int32, device=tables.packed.device)
+    emits = word_match_commit_multi(
+        cps, tables, counts=fused[1 : 1 + n], global_keys=global_keys
+    )
+    return compact_from_counts(emits, fused, cap), emits
 
 
 def decode_compact(fused: np.ndarray, shapes, cap: int):
