@@ -216,45 +216,39 @@ def unit_matrices(width: int, words: list[str], rng, n: int = 2061) -> dict:
 
 
 def kernel_bytes_ops(cps, tables) -> tuple[int, int]:
-    """Bytes one match+commit dispatch must move (the units, the packed
-    slot tables and the lane salts read once; the emit matrices and the
-    counts written once) and the integer operations of probing every
-    position on these inputs: ~12 per probed length (two hash
-    multiply-adds, key and lane folding) and one compare per occupied slot
-    of the probed (length, lane) lists, each position over the lengths of
-    its window only.  The kernel probes only the positions its walk
-    visits, so this overcounts its operations; the bytes bind all the
-    same."""
+    """Bytes one match+commit dispatch must move and the integer operations
+    it must do on these inputs.  Bytes: the units, the list offsets, every
+    occupied slot's {k1, k2, tid} (12 bytes) and the lane salts read once;
+    the emit matrices and the counts written once.  Operations: the commit
+    reads the longest hit only at the positions the greedy walk visits, so
+    only those are counted, each over the lengths of its window: ~12 per
+    length (two hash multiply-adds, key and lane folding) and one compare
+    per occupied slot of the (length, lane) list it probes."""
     import torch
 
-    from wordpiece_tpu_torch.core.length_tables import KIND_MIX, LEN_MIX
-    from wordpiece_tpu_torch.ops.word_kernel import MASK32, _features, _mul32, _widen
+    from wordpiece_tpu_torch.ops.word_kernel import (
+        _features, _widen, probe_keys, walk_visited, word_match,
+    )
 
     nbytes = (
-        tables.slot_image.numel() * 4
-        + tables.n_slots * 16
+        tables.slot_off.numel() * 4
+        + tables.n_slots * 12
         + tables.lane_salts_t.numel() * 4
     )
     lengths = probes = 0
     sizes = (tables.slot_off[1:] - tables.slot_off[:-1]).to(torch.int64)
+    kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
     for cp in cps:
         u, w = cp.shape
         nbytes += cp.numel() * cp.element_size() + u * w * 4 + u * 4
         wide = _widen(cp, w, tables.max_len)
-        _, _, _, wp, window = _features(wide, w, tables.max_len)
-        lmax = torch.clamp(window, max=tables.max_len)
-        lengths += int(lmax.sum())
-        kind = wp.to(torch.int64)
-        h1 = torch.zeros((u, w), dtype=torch.int64, device=cp.device)
-        h2 = torch.zeros_like(h1)
-        for l in range(1, tables.max_len + 1):
-            c = wide[:, l - 1 : l - 1 + w]
-            h1 = (_mul32(h1, tables.mult1) + c) & MASK32
-            h2 = (_mul32(h2, tables.mult2) + c) & MASK32
-            len_mix = (LEN_MIX * l) & MASK32
-            mixed = h1 ^ ((h2 << 1) & MASK32) ^ len_mix ^ (kind * KIND_MIX)
-            lane = _mul32(mixed, tables.lane_salts[l] | 1) >> (32 - 7)
-            probes += int(torch.where(lmax >= l, sizes[l * 128 + lane], 0).sum())
+        pos, space, _, wp, window = _features(wide, w, tables.max_len)
+        _, best_len = word_match(cp, tables.k1, tables.k2, tables.tid, width=w, **kw)
+        visited = walk_visited(pos, space, wp, window, best_len)
+        for l, _, _, lane, in_window in probe_keys(wide, wp, window, width=w, **kw):
+            probed = visited & in_window
+            lengths += int(probed.sum())
+            probes += int(torch.where(probed, sizes[l * 128 + lane], 0).sum())
     return int(nbytes), 12 * lengths + probes
 
 

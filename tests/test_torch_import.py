@@ -17,7 +17,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     glob.glob(os.path.join(ROOT, "wordpiece_tpu_torch", "**", "*.py"), recursive=True)
-) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "e2e_ab.py")]
+) + [os.path.join(ROOT, "chip_smoke.py")]
 
 
 def test_import_with_jax_blocked():

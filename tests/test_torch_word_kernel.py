@@ -23,10 +23,12 @@ from wordpiece_tpu_torch.bench.corpus import make_corpus, make_vocab, make_vocab
 from wordpiece_tpu_torch.core.length_tables import load_length_tables
 from wordpiece_tpu_torch.engine_word import STRIDES, WIDTHS, _narrow
 from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
-from wordpiece_tpu_torch.ops.word_kernel import _mul32, word_match_commit
+from wordpiece_tpu_torch.ops.word_kernel import (
+    _features, _mul32, _widen, probe_keys, walk_visited, word_match, word_match_commit,
+)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import unit_matrices  # noqa: E402
+from chip_smoke import kernel_bytes_ops, unit_matrices  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -102,6 +104,42 @@ def test_plain_takes_any_dtype_and_pad_columns():
         torch.from_numpy(wide), tables.k1, tables.k2, tables.tid, width=15, **tables.statics
     )
     assert torch.equal(got, base)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_probe_keys_and_walk_find_the_emitted_slots(width):
+    """Every position that emits a matched id is one the walk visits, and
+    its token's slot lies in the (length, lane) list that probe_keys names,
+    under the keys it computes: what chip_smoke's bound counts."""
+    _, tables, mats = _setup()
+    kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
+    off = tables.slot_off.long()
+    for kind in KINDS:
+        cp = torch.from_numpy(_narrow(mats[width][kind]))
+        wide = _widen(cp, width, tables.max_len)
+        pos, space, _, wp, window = _features(wide, width, tables.max_len)
+        best_id, best_len = word_match(cp, tables.k1, tables.k2, tables.tid, width=width, **kw)
+        visited = walk_visited(pos, space, wp, window, best_len)
+        emit = word_match_commit(cp, tables.k1, tables.k2, tables.tid, width=width,
+                                 **tables.statics)
+        assert not ((emit != -2) & ~visited).any()
+        found = torch.zeros_like(visited)
+        for l, h1, key2, lane, in_window in probe_keys(wide, wp, window, width=width, **kw):
+            for u, j in (in_window & (best_len == l)).nonzero().tolist():
+                s0, s1 = int(off[l * 128 + lane[u, j]]), int(off[l * 128 + lane[u, j] + 1])
+                hits = [s for s in range(s0, s1)
+                        if int(tables.slot_k1[s]) & 0xFFFFFFFF == int(h1[u, j])
+                        and int(tables.slot_k2[s]) & 0xFFFFFFFF == int(key2[u, j])]
+                assert hits and int(tables.slot_tid[hits[-1]]) == int(best_id[u, j])
+                found[u, j] = True
+        assert torch.equal(found, best_len > 0)
+        nbytes, ops = kernel_bytes_ops([cp], tables)
+        u = cp.shape[0]
+        assert nbytes == (tables.slot_off.numel() * 4 + tables.n_slots * 12
+                          + tables.lane_salts_t.numel() * 4
+                          + cp.numel() * cp.element_size() + u * width * 4 + u * 4)
+        # At least the hash work of one length per visited position.
+        assert ops >= 12 * int((visited & ~space).sum())
 
 
 def test_mul32_wraps_like_uint32():

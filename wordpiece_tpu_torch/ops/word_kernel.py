@@ -83,6 +83,41 @@ def _features(cp: torch.Tensor, width: int, max_len: int):
     return pos, space, punct, wp, window
 
 
+def probe_keys(
+    cp: torch.Tensor,  # int64 [U, width + max_len] from _widen
+    wp: torch.Tensor,  # bool [U, width] word-prefix mask from _features
+    window: torch.Tensor,  # int64 [U, width] probe window from _features
+    *,
+    width: int,
+    max_len: int,
+    rows_off: tuple,
+    mult1: int,
+    mult2: int,
+    lane_salts: tuple,
+):
+    """Yields, for every length l that has table rows, the probe of every
+    position at l: (l, h1, key2, lane, in_window), each [U, width]; h1 and
+    key2 are the uint32 keys compared with the tables' k1 and k2, lane is
+    the (length, lane) list probed, in_window whether l fits the
+    position's window."""
+    U = cp.shape[0]
+    W = width
+    kind = wp.to(torch.int64)
+    h1 = torch.zeros((U, W), dtype=torch.int64, device=cp.device)
+    h2 = torch.zeros((U, W), dtype=torch.int64, device=cp.device)
+    for l in range(1, max_len + 1):
+        c = cp[:, l - 1 : l - 1 + W]
+        h1 = (_mul32(h1, mult1) + c) & MASK32
+        h2 = (_mul32(h2, mult2) + c) & MASK32
+        if rows_off[l + 1] == rows_off[l]:
+            continue
+        len_mix = (LEN_MIX * l) & MASK32
+        key2 = h2 ^ len_mix ^ (kind * KIND_MIX)
+        mixed = h1 ^ ((h2 << 1) & MASK32) ^ len_mix ^ (kind * KIND_MIX)
+        lane = _mul32(mixed, lane_salts[l] | 1) >> (32 - 7)
+        yield l, h1, key2, lane, window >= l
+
+
 def word_match(
     cp: torch.Tensor,  # integer [U, >= width]; columns >= width read as space
     tab_k1: torch.Tensor,  # int32[R, 128]
@@ -102,24 +137,16 @@ def word_match(
     W = width
     _, _, _, wp, window = _features(cp, width, max_len)
 
-    kind = wp.to(torch.int64)
-    h1 = torch.zeros((U, W), dtype=torch.int64, device=cp.device)
-    h2 = torch.zeros((U, W), dtype=torch.int64, device=cp.device)
     best_id = torch.full((U, W), -1, dtype=torch.int64, device=cp.device)
     best_len = torch.zeros((U, W), dtype=torch.int64, device=cp.device)
 
-    for l in range(1, max_len + 1):
-        c = cp[:, l - 1 : l - 1 + W]
-        h1 = (_mul32(h1, mult1) + c) & MASK32
-        h2 = (_mul32(h2, mult2) + c) & MASK32
+    for l, h1, key2, lane, in_window in probe_keys(
+        cp, wp, window, width=width, max_len=max_len, rows_off=rows_off,
+        mult1=mult1, mult2=mult2, lane_salts=lane_salts,
+    ):
         r0, r1 = rows_off[l], rows_off[l + 1]
-        if r1 == r0:
-            continue
-        len_mix = (LEN_MIX * l) & MASK32
-        key2 = h2 ^ len_mix ^ (kind * KIND_MIX)
-        mixed = h1 ^ ((h2 << 1) & MASK32) ^ len_mix ^ (kind * KIND_MIX)
-        lane = (_mul32(mixed, lane_salts[l] | 1) >> (32 - 7)).reshape(-1)
-        ok_l = (window >= l).reshape(-1)
+        lane = lane.reshape(-1)
+        ok_l = in_window.reshape(-1)
 
         # All B_l candidate rows at once: [B_l, U*W] per table.
         cand1 = (tab_k1[r0:r1].to(torch.int64) & MASK32)[:, lane]
@@ -141,24 +168,11 @@ def word_match(
     return best_id, best_len
 
 
-def word_commit(
-    cp: torch.Tensor,
-    best_id: torch.Tensor,
-    best_len: torch.Tensor,
-    *,
-    width: int,
-    max_len: int,
-    unk_id: int,
-) -> torch.Tensor:
-    """Greedy walk + whole-word UNK rollback over the match results."""
-    cp = _widen(cp, width, max_len)
-    U = cp.shape[0]
-    W = width
-    dev = cp.device
-    pos, space, _, wp, window = _features(cp, width, max_len)
-    best_id = best_id.to(torch.int64)
-    best_len = best_len.to(torch.int64)
-
+def walk_visited(pos, space, wp, window, best_len) -> torch.Tensor:
+    """The positions the greedy walk from position 0 visits, bool [U, W],
+    from _features' (pos, space, wp, window) and the match's best_len."""
+    U, W = pos.shape
+    dev = pos.device
     matched = best_len > 0
 
     # Next-position helpers with sentinel column W.
@@ -180,7 +194,29 @@ def word_commit(
     for _ in range(W + 1):
         visited |= pos_ext == p
         p = jump.gather(1, p)
-    visited = visited[:, :W]
+    return visited[:, :W]
+
+
+def word_commit(
+    cp: torch.Tensor,
+    best_id: torch.Tensor,
+    best_len: torch.Tensor,
+    *,
+    width: int,
+    max_len: int,
+    unk_id: int,
+) -> torch.Tensor:
+    """Greedy walk + whole-word UNK rollback over the match results."""
+    cp = _widen(cp, width, max_len)
+    U = cp.shape[0]
+    W = width
+    dev = cp.device
+    pos, space, _, wp, window = _features(cp, width, max_len)
+    best_id = best_id.to(torch.int64)
+    best_len = best_len.to(torch.int64)
+
+    matched = best_len > 0
+    visited = walk_visited(pos, space, wp, window, best_len)
 
     # Segment kill: a visited fail position kills every emission back to
     # its segment start (last visited word-prefix position), which then
