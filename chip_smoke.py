@@ -37,7 +37,26 @@ JAX package.  Phases, each fatal on failure:
     compaction) and each kernel's bound; the 10 MB en encode rate (min and
     median of 5) with its stage breakdown, and one more such encode under
     torch.profiler: device time per kernel and the card's busy share of
-    the wall time (--trace PATH also writes its trace).
+    the wall time (--trace PATH also writes its trace);
+ 6. linear main path: the word kernels' counts are set to 0, then the
+    linear engine encodes the same 10 MB en/ru/ja/zh corpora through
+    linear.encode_text(..., device="cuda") and every golden stream; ids
+    must equal the oracle and the goldens, each encoder must have run its
+    batch program on the card (device_batches > 0; nk is printed), and
+    every pipelined dispatch runs under torch's sync debug mode, so a host
+    synchronisation in it fails the run.  Then the char-level vocab
+    (compact-cap overflow: full_fetches > 0), the prefix-doubling fallback
+    (a 5,000-symbol vocab with 49-90-codepoint tokens: nk > 24) and the
+    MAX_SLOT_LEN scalar route (a 100-codepoint token: no device batch),
+    each against the oracle; the word kernels must not have launched;
+ 7. linear numbers: the 10 MB en rate (min and median of 5) with its
+    stage breakdown; one encode under torch.profiler (device time by op
+    class, launches per batch, busy share); and, at the en first batch's
+    shapes, held to the oracle first, the device time of the whole batch
+    and of each part (sort, LCP and who-tables, features, sweeps and
+    match, commit) by CUDA events around CUDA graph replays (the capture
+    also proves the batch program has no host sync), the fallback's
+    suffix array and LCP over that batch's S, and each part's bytes bound.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -53,6 +72,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -121,6 +141,34 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     if spin.query():
         raise RuntimeError("device_ms: the host did not stay ahead of the card")
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn() in ms by CUDA events around replays of a
+    CUDA graph of it: for a call of hundreds of small launches, which the
+    host enqueues slower than the card runs them and which would overflow
+    the launch queue behind device_ms's spin kernel.  The capture also
+    fails on any host synchronisation in fn."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -269,6 +317,72 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# ---- phase 6/7 helpers -----------------------------------------------------
+def doubling_vocab(rng):
+    """Vocabulary lines whose packed sort keys would need nk > 24 passes (the
+    linear engine's prefix-doubling fallback) — 5,000 distinct symbols (13
+    bits, 2 per key) in tokens of 49-90 codepoints, plus single-symbol
+    prefix and suffix tokens — and a small text of whole tokens, token
+    heads and single-symbol words."""
+    syms = 0x100 + rng.permutation(5000)  # none is a space, punctuation or CJK
+    longs, i = [], 0
+    while i < syms.shape[0]:
+        size = int(rng.integers(49, 91))
+        longs.append("".join(chr(c) for c in syms[i : i + size]))
+        i += size
+    singles = [chr(c) for c in syms[:400]]
+    words = []
+    for _ in range(600):
+        tok, r = longs[int(rng.integers(len(longs)))], rng.random()
+        if r < 0.4:
+            words.append(tok)
+        elif r < 0.7:
+            words.append(tok[: int(rng.integers(1, 40))])
+        else:
+            k = rng.integers(0, len(singles), size=int(rng.integers(1, 8)))
+            words.append("".join(singles[int(j)] for j in k))
+    return ["[UNK]"] + longs + singles + ["##" + c for c in singles], " ".join(words)
+
+
+def op_class(name: str) -> str:
+    """Class of a CUDA kernel of the linear batch, by its name."""
+    low = name.lower()
+    if low.startswith(("memcpy", "memset")):
+        return "copies (memcpy)"
+    if "sort" in low or "radix" in low:
+        return "sorts"
+    if "scan" in low:
+        return "scans (cummax/cummin/cumsum)"
+    if "scatter" in low:
+        return "scatters"
+    if "index" in low or "gather" in low:
+        return "gathers"
+    if "cat" in low or "copy" in low:
+        return "copies (cat/cast)"
+    if "reduce" in low:
+        return "reductions"
+    return "elementwise"
+
+
+def linear_bytes(np_: int, nv_pad: int, nk: int, max_len: int, cap: int) -> dict:
+    """Bytes of one linear batch, per part.  The sort: nk passes over the
+    nm (int32 key, int32 element id) pairs, each read and written once.
+    The sweeps: the [max_len, nm] int32 matrices of this design (two kill
+    tables, four surviving-slot matrices), each written once.  The other
+    parts: their inputs read once and outputs written once."""
+    nm = np_ + nv_pad
+    sort = nk * nm * 8 * 2
+    sweeps = 6 * max_len * nm * 4
+    return {
+        "batch": 2 * np_ * 2 + (nk + 3) * nv_pad * 4 + sort + sweeps + (1 + 2 * cap) * 4,
+        "sort": np_ * 2 + nk * nv_pad * 4 + sort + nm * 4,
+        "lcp_who": nk * nm * 4 + nm * 8 + 3 * nv_pad * 4 + 4 * nm * 4,
+        "features": np_ * 4 + np_ * (4 + 4 + 4 + 4 * 1),
+        "match": 5 * nm * 4 + np_ * 5 + sweeps + 2 * np_ * 4,
+        "commit": np_ * (5 * 4 + 2) + 2 * np_ * 4 + 4,
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -324,7 +438,8 @@ def main(argv=None) -> int:
 
     # ---- 3. kernels vs plain -----------------------------------------------
     en = make_corpus(10_000_000, lang="en")
-    vocab_en = parse_vocab(make_vocab_bert(en))
+    bert_lines_en = make_vocab_bert(en)
+    vocab_en = parse_vocab(bert_lines_en)
     host_tables = build_length_tables(vocab_en)
     tables = load_length_tables(host_tables, dev)
     words = en[:400_000].decode("utf-8", errors="ignore").split()
@@ -434,10 +549,12 @@ def main(argv=None) -> int:
         enc._dispatch_buckets = record
         return enc
 
+    corpora = {}  # lang -> (corpus, vocab, oracle ids), reused by phase 6
     for lang in ("en", "ru", "ja", "zh"):
         data = en if lang == "en" else make_corpus(10_000_000, lang=lang)
         vocab = vocab_en if lang == "en" else parse_vocab(make_vocab_bert(data))
         want = loader.VocabHandle(vocab).encode(loader.decode_utf8(data))
+        corpora[lang] = (data, vocab, want)
         before = (mc.launches, wk.compact_from_counts.launches, dispatches)
         # The user entry point; each corpus's first dispatch is kept for
         # phase 5's kernel timing at the main path's shapes.
@@ -477,8 +594,8 @@ def main(argv=None) -> int:
     char_vocab = parse_vocab(["[UNK]"] + chars + ["##" + c for c in chars])
     enc = recording(wpt.make_encoder(char_vocab, "fast", device="cuda"), None)
     got = enc.encode_bytes(head)
-    want = loader.VocabHandle(char_vocab).encode(loader.decode_utf8(head))
-    ok = np.array_equal(got, want)
+    char_want = loader.VocabHandle(char_vocab).encode(loader.decode_utf8(head))
+    ok = np.array_equal(got, char_want)
     emit_json({"phase": "main_path", "corpus": "en_3MB", "vocab": f"char_{char_vocab.size}",
                "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
                "device_fallbacks": enc.device_fallbacks, "verify_repairs": enc.verify_repairs,
@@ -494,6 +611,7 @@ def main(argv=None) -> int:
     golden_files = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "golden_*.npz")))
     if not golden_files:
         raise AssertionError("no tests/golden/*.npz")
+    goldens = []  # (file, corpus, vocab lines, reference ids), reused by phase 6
     for path in golden_files:
         z = np.load(path)
         corpus = make_corpus(int(z["corpus_bytes"]), lang=str(z["lang"]))
@@ -502,6 +620,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: regenerated corpus differs")
         if hashlib.sha256("\n".join(lines).encode()).hexdigest() != str(z["vocab_sha"]):
             raise AssertionError(f"{path}: regenerated vocab differs")
+        goldens.append((os.path.basename(path), corpus, lines, z["ids"].astype(np.int32)))
         enc = recording(wpt.make_encoder(parse_vocab(lines), "fast", device="cuda"), None)
         got = enc.encode_bytes(corpus)
         ok = got.dtype == np.int32 and np.array_equal(got, z["ids"].astype(np.int32))
@@ -602,6 +721,224 @@ def main(argv=None) -> int:
                "device_busy_ms": None if busy_us is None else busy_us / 1e3,
                "device_busy_share": None if busy_us is None else busy_us / 1e3 / (wall * 1e3),
                "device_rows": rows, "trace": trace_path})
+
+    # ---- 6. the linear engine's main path ----------------------------------
+    from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.engine_linear import (
+        _linear_batch_compact, _widen, neighbour_lcp, sort_elements, who_tables,
+    )
+    from wordpiece_tpu_torch.ops.commit import commit_with_positions
+    from wordpiece_tpu_torch.ops.linear_match import match_from_sa
+    from wordpiece_tpu_torch.ops.suffix_array import lcp_clamped, suffix_array
+    from wordpiece_tpu_torch.ops.text_features import compute_features
+
+    mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    lin_first: dict = {}
+
+    def lin_recording(enc, lang):
+        """Keep each corpus's first batch for phase 7, and hold every
+        pipelined dispatch to no host synchronisation: torch's sync debug
+        mode warns on each, and any warning fails the run, naming every
+        line that synchronised."""
+        orig = enc._encode_batch
+
+        def record(cps, as_handle=False):
+            if lang is not None and lang not in lin_first:
+                lin_first[lang] = cps.copy()
+            if not as_handle:
+                return orig(cps, as_handle)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    handle = orig(cps, as_handle=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                            if "called a synchronizing" in str(w.message)})
+            if syncs:
+                raise AssertionError(f"host synchronisation in a pipelined linear dispatch: {syncs}")
+            return handle
+
+        enc._encode_batch = record
+        return enc
+
+    lin_enc = {}
+    lin_batches = 0
+    for lang in ("en", "ru", "ja", "zh"):
+        data, vocab, want = corpora[lang]
+        # The namespace's own cached encoder: made here, so that the
+        # recorder sits on it before the user entry point encodes.
+        enc = lin_recording(api.linear._encoder(vocab, "cuda"), lang)
+        got = wpt.linear.encode_text(data, vocab, device="cuda")
+        del enc._encode_batch
+        m = enc._merge
+        ok = len(got) == want.shape[0] and np.array_equal(np.asarray(got, np.int32), want)
+        emit_json({"phase": "linear_main_path", "corpus": f"{lang}_10MB", "vocab": "bert_28996",
+                   "ids": len(got), "equal_native_oracle": bool(ok), "device": str(enc.device),
+                   "tables_device": str(m.tok_keys.device), "device_batches": enc.device_batches,
+                   "full_fetches": enc.full_fetches, "nk": m.nk, "bits": m.bits, "per": m.per,
+                   "nv_pad": m.nv_pad, "max_len": enc.max_len})
+        if not ok:
+            raise AssertionError(f"linear {lang}: ids differ from the native oracle")
+        if enc.device.type != "cuda" or m.tok_keys.device.type != "cuda" or enc.device_batches < 1:
+            raise AssertionError(f"linear {lang}: the batch program did not run on the card")
+        lin_enc[lang] = enc
+        lin_batches += enc.device_batches
+
+    for name, corpus, lines, ref in goldens:
+        enc = lin_recording(wpt.make_encoder(parse_vocab(lines), "linear", device="cuda"), None)
+        got = enc.encode_bytes(corpus)
+        ok = got.dtype == np.int32 and got.tobytes() == ref.tobytes()
+        emit_json({"phase": "linear_golden", "file": name, "ids": int(got.shape[0]),
+                   "byte_identical": bool(ok), "device_batches": enc.device_batches})
+        if not ok or enc.device_batches < 1:
+            raise AssertionError(f"linear {name}: ids differ from the reference stream")
+        lin_batches += enc.device_batches
+
+    # Overflow: the char-level vocabulary emits ~1 id per codepoint, past
+    # the compact cap of the first batch.
+    enc = lin_recording(wpt.make_encoder(char_vocab, "linear", device="cuda"), None)
+    got = enc.encode_bytes(head)
+    ok = np.array_equal(got, char_want)
+    emit_json({"phase": "linear_overflow", "corpus": "en_3MB", "vocab": f"char_{char_vocab.size}",
+               "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
+               "device_batches": enc.device_batches, "full_fetches": enc.full_fetches})
+    if not ok or enc.full_fetches < 1:
+        raise AssertionError(f"linear char vocab: ok={ok}, full_fetches={enc.full_fetches}")
+    lin_batches += enc.device_batches
+
+    # The prefix-doubling fallback (nk > 24).
+    d_lines, d_text = doubling_vocab(np.random.default_rng(7))
+    d_vocab = parse_vocab(d_lines)
+    enc = wpt.make_encoder(d_vocab, "linear", device="cuda")
+    t0 = time.perf_counter()
+    got = enc.encode_bytes(d_text.encode())
+    d_s = time.perf_counter() - t0
+    want = loader.VocabHandle(d_vocab).encode(loader.decode_utf8(d_text.encode()))
+    ok = enc._merge is None and np.array_equal(got, want)
+    emit_json({"phase": "linear_doubling_fallback", "vocab": d_vocab.size, "max_len": enc.max_len,
+               "codepoints": len(d_text), "ids": int(got.shape[0]),
+               "matched_long": int(((got >= 1) & (got < 1 + len(d_lines) - 801)).sum()),
+               "equal_native_oracle": bool(ok), "device_batches": enc.device_batches,
+               "seconds": d_s})
+    if not ok or enc.device_batches < 1:
+        raise AssertionError("linear doubling fallback: ids differ from the native oracle")
+    lin_batches += enc.device_batches
+
+    # The MAX_SLOT_LEN scalar route: one token longer than 96 codepoints.
+    s_vocab = parse_vocab(bert_lines_en + ["q" * 100])
+    s_text = en[:1_000_000] + b" " + b"q" * 100 + b" qq"
+    enc = wpt.make_encoder(s_vocab, "linear", device="cuda")
+    got = enc.encode_bytes(s_text)
+    want = loader.VocabHandle(s_vocab).encode(loader.decode_utf8(s_text))
+    ok = np.array_equal(got, want) and bool((got == s_vocab.size - 1).any())
+    emit_json({"phase": "linear_scalar_route", "max_len": enc.max_len, "ids": int(got.shape[0]),
+               "equal_native_oracle": bool(ok), "device_batches": enc.device_batches})
+    if not ok or enc.max_len <= enc.MAX_SLOT_LEN or enc.device_batches != 0:
+        raise AssertionError("linear MAX_SLOT_LEN route: wrong ids or a device batch ran")
+    word_launches = mc.launches + wk.compact_from_counts.launches
+    emit_json({"phase": "linear_main_path_batches", "device_batches": lin_batches,
+               "word_kernel_launches": word_launches})
+    if word_launches:
+        raise AssertionError("the linear path launched the word engine's kernels")
+
+    # ---- 7. linear numbers ----------------------------------------------------
+    enc_lin = lin_enc["en"]
+    runs = []
+    for _ in range(5):
+        enc_lin.stats = StageStats()
+        t0 = time.perf_counter()
+        got = enc_lin.encode_bytes(en)
+        runs.append((time.perf_counter() - t0, enc_lin.stats.report()))
+    enc_lin.stats = None
+    if not np.array_equal(got, want_en):
+        raise AssertionError("timed linear en encode: ids differ from the native oracle")
+    best = min(runs, key=lambda r: r[0])
+    median_s = float(np.median([r[0] for r in runs]))
+    emit_json({"phase": "linear_e2e", "corpus": "en_10MB", "vocab": "bert_28996", "card": card,
+               "seconds": [r[0] for r in runs], "best_s": best[0], "median_s": median_s,
+               "mb_per_s": len(en) / best[0] / 1e6, "median_mb_per_s": len(en) / median_s / 1e6,
+               "stages": best[1]})
+
+    b0 = enc_lin.device_batches
+    wall, rows, busy_us = device_profile(lambda: enc_lin.encode_bytes(en), None)
+    batches = enc_lin.device_batches - b0
+    classes: dict = {}
+    for name, count, us in rows:
+        c = classes.setdefault(op_class(name), [0, 0.0])
+        c[0] += count
+        c[1] += us
+    kernels = sum(c for n, c, _ in rows if not n.lower().startswith(("memcpy", "memset")))
+    emit_json({"phase": "linear_profile", "corpus": "en_10MB", "card": card, "wall_ms": wall * 1e3,
+               "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+               "device_busy_share": None if busy_us is None else busy_us / 1e3 / (wall * 1e3),
+               "batches": batches, "kernel_launches_per_batch": kernels / max(batches, 1),
+               "by_class_ms": {k: [c, us / 1e3] for k, (c, us) in sorted(classes.items())},
+               "device_rows": rows[:25]})
+
+    # One batch at the en first batch's shapes, whole and by part, by CUDA
+    # events around CUDA graph replays; held to the native oracle first.
+    cps = lin_first["en"]
+    m = enc_lin._merge
+    x_np, c_np, cap, max_chain = enc_lin.batch_inputs(cps)
+
+    def on_card(a):
+        return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(dev)
+
+    x_t, c_t = on_card(x_np), on_card(c_np)
+    n, np_, max_len = int(cps.shape[0]), int(x_np.shape[0]), enc_lin.max_len
+    tabs = (m.tok_keys, m.tok_len, m.tok_id, m.tok_kind)
+    statics = dict(bits=m.bits, per=m.per, nk=m.nk, max_len=max_len, unk_id=enc_lin._unk_id)
+
+    def run_batch():
+        return _linear_batch_compact(x_t, c_t, n, *tabs, **statics, cap=cap, max_chain=max_chain)
+
+    fused, ids_d, _ = run_batch()
+    count = int(fused[0])
+    if not np.array_equal(ids_d[:count].cpu().numpy(), loader.VocabHandle(vocab_en).encode(cps)):
+        raise AssertionError("linear en first batch: ids differ from the native oracle")
+    xw, cw = _widen(x_t), _widen(c_t)
+    keys, sa, rank = sort_elements(xw, m.tok_keys, bits=m.bits, per=m.per, nk=m.nk)
+    lcp = neighbour_lcp(keys, sa, bits=m.bits, per=m.per, max_len=max_len)
+    who = who_tables(sa, np_, *tabs[1:])
+    feats = compute_features(cw, n, max_len)
+    best_m = match_from_sa(rank, lcp, *who, feats.window, feats.wp, max_len=max_len)
+    parts = {
+        "batch": run_batch,
+        "sort": lambda: sort_elements(xw, m.tok_keys, bits=m.bits, per=m.per, nk=m.nk),
+        "lcp_who": lambda: (neighbour_lcp(keys, sa, bits=m.bits, per=m.per, max_len=max_len),
+                            who_tables(sa, np_, *tabs[1:])),
+        "features": lambda: compute_features(cw, n, max_len),
+        "match": lambda: match_from_sa(rank, lcp, *who, feats.window, feats.wp,
+                                       max_len=max_len),
+        "commit": lambda: commit_with_positions(*best_m, feats, n, unk_id=enc_lin._unk_id,
+                                                max_chain=max_chain),
+    }
+    part_ms = {name: graph_ms(fn, 20) for name, fn in parts.items()}
+    part_launches = {}  # kernel launches of one call, from its profile
+    for name, fn in parts.items():
+        _, rows, _ = device_profile(fn, None)
+        part_launches[name] = sum(c for k, c, _ in rows
+                                  if not k.lower().startswith(("memcpy", "memset")))
+    # The same whole batch by events around plain stream launches (no
+    # graph): the host's enqueue is then part of what the events see.
+    part_ms["batch_stream_launches"] = cuda_ms(run_batch, 5)
+    # The fallback's suffix array and LCP over this batch's S (text · vocab
+    # tail): their exit test reads the card once per round, so the events
+    # also take in those host round trips.
+    s_dev = torch.from_numpy(enc_lin.doubling_string(cps)).to(dev)
+    part_ms["suffix_array_lcp"] = cuda_ms(
+        lambda: lcp_clamped(s_dev, suffix_array(s_dev)[0], clamp=max_len), 3
+    )
+    nbytes = linear_bytes(np_, m.nv_pad, m.nk, max_len, cap)
+    nbytes["suffix_array_lcp"] = int(s_dev.numel()) * 4 * 4
+    emit_json({"phase": "linear_batch_time", "corpus": "en_10MB", "card": card,
+               "shapes": {"n": n, "np": np_, "nm": np_ + m.nv_pad, "nk": m.nk, "max_len": max_len,
+                          "cap": cap, "max_chain": max_chain, "count": count,
+                          "s_doubling": int(s_dev.numel())},
+               "ms": part_ms, "launches": part_launches, "bytes": nbytes,
+               "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}})
 
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]

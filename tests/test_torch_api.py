@@ -1,7 +1,7 @@
 """The port's public surface (fast.encode / encode_text / encode_file /
-decode / encode_external with resume, write_ids_file, the CLI) against
-wordpiece_tpu's, on small inputs and device="cpu".  Ids and files are
-compared exactly."""
+decode / encode_external with resume, write_ids_file, the CLI, and the
+same for the linear engine) against wordpiece_tpu's, on small inputs and
+device="cpu".  Ids and files are compared exactly."""
 
 import json
 
@@ -39,6 +39,15 @@ def test_encode_text_and_bytes():
     assert wpt.fast.encode(TEXT, VOCAB, **CPU) == want
     assert wpt.fast.encode_text(TEXT.encode(), VOCAB, **CPU) == want
     assert wpt.fast.encode("the dog", ["[UNK]", "the", "dog"], **CPU) == [1, 2]
+
+
+def test_linear_encode_text_and_file(files):
+    tf, vf, _ = files
+    want = wp.fast.encode(TEXT, VOCAB)
+    assert wpt.linear.encode(TEXT, VOCAB, **CPU) == want
+    assert wpt.linear.encode_text(TEXT.encode(), VOCAB, **CPU) == want
+    assert wpt.linear.encode_file(tf, vf, **CPU) == wp.fast.encode(tf, vf)
+    assert wpt.linear.decode(VOCAB, [1, 6, 11]) == wp.linear.decode(VOCAB, [1, 6, 11])
 
 
 def test_encode_file(files):
@@ -113,7 +122,55 @@ def test_encode_external_checkpoint_resume(tmp_path):
     assert out.read_text() == full
 
 
-@pytest.mark.parametrize("mode", ["fast", "host", "oracle"])
+def test_linear_encode_external_budget_and_resume(tmp_path, monkeypatch):
+    """linear.encode_external batches at memory_limit // 20 (fast: // 2),
+    records engine "linear" in its state file, resumes from a linear
+    checkpoint and refuses a fast one."""
+    data = make_corpus(200_000)
+    lines = make_vocab(data, vocab_size=2000)
+    tf, vf = tmp_path / "c.txt", tmp_path / "v.txt"
+    tf.write_bytes(data)
+    vf.write_text("\n".join(lines))
+    ref = tmp_path / "ref.txt"
+    wp.fast.encode_external(str(tf), str(vf), str(ref), 200_000)
+    out = tmp_path / "out.txt"
+    sizes, states = [], []
+    encode_with = api._encode_with
+
+    def recording(enc, raw):
+        sizes.append(len(raw))
+        if (tmp_path / "out.txt.state").exists():
+            states.append(json.loads((tmp_path / "out.txt.state").read_text()))
+        return encode_with(enc, raw)
+
+    monkeypatch.setattr(api, "_encode_with", recording)
+    wpt.linear.encode_external(str(tf), str(vf), str(out), 200_000, **CPU)
+    monkeypatch.undo()
+    full = out.read_text()
+    assert full == ref.read_text()
+    assert not (tmp_path / "out.txt.state").exists()
+    assert sum(sizes) == len(data) and len(sizes) >= 19
+    assert all(10_000 <= s < 10_100 for s in sizes[:-1])
+    assert states and all(st["engine"] == "linear" for st in states)
+
+    begin = sum(sizes[:3])
+    prefix = "".join(f"{i} " for i in wpt.linear.encode_text(data[:begin], lines, **CPU))
+    marker = "7" * (len(prefix) - 1) + " "  # tells a kept prefix from a rewrite
+    vocab = parse_vocab(lines)
+    state = {
+        "text_size": len(data), "memory_limit": 200_000, "engine": "fast",
+        "offset": begin, "out_bytes": len(prefix),
+        "vocab_fp": api._vocab_fingerprint(vocab), "text_fp": api._file_fingerprint(str(tf)),
+    }
+    for engine, want in (("fast", full), ("linear", marker + full[len(prefix):])):
+        out.write_text(marker + "999999 12345 ")
+        (tmp_path / "out.txt.state").write_text(json.dumps(dict(state, engine=engine)))
+        wpt.linear.encode_external(str(tf), str(vf), str(out), 200_000, resume=True, **CPU)
+        assert out.read_text() == want, engine
+        assert not (tmp_path / "out.txt.state").exists()
+
+
+@pytest.mark.parametrize("mode", ["fast", "host", "oracle", "linear"])
 def test_cli_encode_modes_match_jax(mode, files, capsys):
     tf, vf, tmp = files
     mine, ref = tmp / f"{mode}_mine.txt", tmp / f"{mode}_ref.txt"
@@ -135,6 +192,17 @@ def test_cli_fast_external_matches_jax(files):
     with pytest.raises(SystemExit):
         main(["fast-external", tf, vf, "--out-file", str(mine), "--memory-limit-mb", "10",
               "--device", "cpu"])
+
+
+def test_cli_linear_external_matches_jax(files):
+    tf, vf, tmp = files
+    mine, ref = tmp / "lext_mine.txt", tmp / "lext_ref.txt"
+    assert main(["linear-external", tf, vf, "--out-file", str(mine), "--memory-limit-mb", "50",
+                 "--device", "cpu"]) == 0
+    jax_main(["linear-external", tf, vf, "--out-file", str(ref), "--memory-limit-mb", "50"])
+    assert mine.read_bytes() == ref.read_bytes()
+    with pytest.raises(SystemExit):
+        main(["linear-external", tf, vf, "--out-file", str(mine), "--device", "cpu"])
 
 
 def test_cli_decode_matches_jax(files, capsys):
@@ -160,8 +228,11 @@ def test_make_encoder_engines():
     host = api.make_encoder(v, "host", **CPU).encode_codepoints(cps)
     oracle = api.make_encoder(v, "oracle", **CPU).encode_codepoints(cps)
     fast = api.make_encoder(v, "fast", cache=True, **CPU).encode_bytes(b"ab a zz")
-    assert host.tolist() == oracle.tolist() == fast.tolist() == [3, 1, 0]
+    linear = api.make_encoder(v, "linear", **CPU).encode_bytes(b"ab a zz")
+    assert host.tolist() == oracle.tolist() == fast.tolist() == linear.tolist() == [3, 1, 0]
     with pytest.raises(ValueError):
         api.make_encoder(v, "host", cache=True)
+    with pytest.raises(ValueError):
+        api.make_encoder(v, "linear", cache=True, **CPU)
     with pytest.raises(ValueError):
         api.make_encoder(v, "nope")

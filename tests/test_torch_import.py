@@ -27,7 +27,10 @@ def test_import_with_jax_blocked():
         "sys.modules['wordpiece_tpu'] = None\n"
         "import wordpiece_tpu_torch\n"
         "import wordpiece_tpu_torch.cli, wordpiece_tpu_torch.engine_word\n"
+        "import wordpiece_tpu_torch.engine_linear\n"
         "import wordpiece_tpu_torch.ops.word_kernel_cuda\n"
+        "import wordpiece_tpu_torch.ops.commit, wordpiece_tpu_torch.ops.linear_match\n"
+        "import wordpiece_tpu_torch.ops.suffix_array, wordpiece_tpu_torch.ops.text_features\n"
         "import wordpiece_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'wordpiece_tpu.'))\n"
@@ -67,6 +70,7 @@ def _vocab():
 def _entry_points(tmp_path):
     import wordpiece_tpu_torch as wpt
     from wordpiece_tpu_torch.cli import main
+    from wordpiece_tpu_torch.engine_linear import LinearEncoder
     from wordpiece_tpu_torch.engine_word import WordEncoder
 
     tf = tmp_path / "c.txt"
@@ -81,11 +85,21 @@ def _entry_points(tmp_path):
             str(tf), str(vf), str(tmp_path / "o.txt"), 1 << 20
         ),
         "cli": lambda: main(["fast", str(tf), str(vf)]),
+        "make_encoder_linear": lambda: wpt.make_encoder(_vocab(), "linear"),
+        "LinearEncoder": lambda: LinearEncoder(_vocab()),
+        "linear.encode": lambda: wpt.linear.encode("a b", ["[UNK]", "a", "b"]),
+        "linear.encode_external": lambda: wpt.linear.encode_external(
+            str(tf), str(vf), str(tmp_path / "o.txt"), 1 << 20
+        ),
+        "cli_linear": lambda: main(["linear", str(tf), str(vf)]),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["make_encoder", "WordEncoder", "fast.encode", "fast.encode_external", "cli"]
+    "name",
+    ["make_encoder", "WordEncoder", "fast.encode", "fast.encode_external", "cli",
+     "make_encoder_linear", "LinearEncoder", "linear.encode", "linear.encode_external",
+     "cli_linear"],
 )
 def test_entry_point_without_gpu_raises(name, tmp_path):
     if torch.cuda.is_available():
@@ -102,12 +116,19 @@ def test_entry_point_on_cpu_runs():
     np.testing.assert_array_equal(enc.encode_bytes(b"b a zz"), [2, 1, 0])
 
 
-@pytest.mark.parametrize("engine", ["linear", "fast-stream"])
+@pytest.mark.parametrize("engine", ["fast-stream"])
 def test_not_ported_engines_raise(engine):
     import wordpiece_tpu_torch as wpt
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wpt.make_encoder(_vocab(), engine, device="cpu")
+
+
+def test_linear_engine_encodes_on_cpu():
+    import wordpiece_tpu_torch as wpt
+
+    enc = wpt.make_encoder(_vocab(), "linear", device="cpu")
+    np.testing.assert_array_equal(enc.encode_bytes(b"b a zz"), [2, 1, 0])
 
 
 def test_fast_without_native_runtime_raises(monkeypatch):
@@ -121,14 +142,34 @@ def test_fast_without_native_runtime_raises(monkeypatch):
         wpt.make_encoder(_vocab(), "fast", device="cpu")
 
 
-def test_linear_namespace_raises():
+def test_linear_namespace_encodes():
     import wordpiece_tpu_torch as wpt
+    from wordpiece_tpu_torch.core.oracle import encode_oracle_str
 
-    with pytest.raises(NotImplementedError, match="linear"):
-        wpt.linear.encode("a b", ["[UNK]", "a", "b"])
+    text = "a b ab zz ba"
+    want = encode_oracle_str(text.encode(), _vocab())
+    assert wpt.linear.encode(text, ["[UNK]", "a", "b"], device="cpu") == want == [1, 2, 0, 0, 0]
 
 
-@pytest.mark.parametrize("mode", ["linear", "linear-external", "fast-stream"])
+@pytest.mark.parametrize("mode", ["linear", "linear-external"])
+def test_cli_linear_modes_match_jax(mode, tmp_path, capsys):
+    from wordpiece_tpu.cli import main as jax_main
+    from wordpiece_tpu_torch.cli import main
+
+    tf = tmp_path / "c.txt"
+    tf.write_text("a b ab zz ba " * 20)
+    vf = tmp_path / "v.txt"
+    vf.write_text("[UNK]\na\nb\n##b")
+    extra = ["--memory-limit-mb", "50"] if mode.endswith("-external") else []
+    mine, ref = tmp_path / "mine.txt", tmp_path / "ref.txt"
+    assert main([mode, str(tf), str(vf), "--out-file", str(mine), "--device", "cpu"] + extra) == 0
+    out_mine = capsys.readouterr().out
+    assert jax_main([mode, str(tf), str(vf), "--out-file", str(ref)] + extra) == 0
+    assert capsys.readouterr().out == out_mine
+    assert mine.read_bytes() == ref.read_bytes() and mine.read_text().startswith("1 2 1 3 ")
+
+
+@pytest.mark.parametrize("mode", ["fast-stream"])
 def test_cli_not_ported_modes_exit_nonzero(mode, tmp_path):
     from wordpiece_tpu_torch.cli import main
 

@@ -6,10 +6,11 @@ Reference surface (src/word_piece.hpp:1-38):
   word_piece::fast::encodeExternal(text_file, vocab_file, out_file, limit)
   word_piece::linear::{encode, encodeExternal}
 
-`fast` runs the word engine (engine_word.WordEncoder) on the card.  Every
-entry point that reaches the device takes `device=`: "cuda" (the
-default; raises when no GPU is present) or "cpu".  The `linear` engine
-and the `fast-stream` engine are not ported yet and raise
+`fast` runs the word engine (engine_word.WordEncoder) and `linear` the
+suffix-array engine (engine_linear.LinearEncoder) on the card; their id
+streams are identical.  Every entry point that reaches the device takes
+`device=`: "cuda" (the default; raises when no GPU is present) or "cpu".
+The `fast-stream` engine is not ported yet and raises
 NotImplementedError; nothing falls back silently to another engine.
 
 Encoder instances cache the built kernel and the vocab's device tables;
@@ -35,7 +36,6 @@ _ENCODER_CACHE: OrderedDict[tuple, object] = OrderedDict()
 _ENCODER_CACHE_MAX = 8
 
 _NOT_PORTED = {
-    "linear": "the linear engine is not ported yet (ROADMAP.md, queue A, item 1)",
     "fast-stream": "the fast-stream engine is not ported yet (ROADMAP.md, queue A, item 2)",
 }
 
@@ -88,11 +88,12 @@ def _encode_with(enc, raw: bytes) -> np.ndarray:
     return enc.encode_codepoints(uni.decode_utf8(raw).astype(np.int32))
 
 
-class _FastNamespace:
-    """The `fast` namespace: encode / encode_text / encode_file /
-    encode_external / decode."""
+class _EngineNamespace:
+    """The `fast` and `linear` namespaces: encode / encode_text /
+    encode_file / encode_external / decode."""
 
-    _engine_name = "fast"
+    def __init__(self, engine_name: str):
+        self._engine_name = engine_name
 
     def _encoder(self, vocab: Vocabulary, device):
         key = (self._engine_name, id(vocab), str(device))
@@ -148,7 +149,7 @@ class _FastNamespace:
         resume: bool = False,
         device="cuda",
     ) -> None:
-        """Out-of-core batch loop (src/fast.cpp:189-220).
+        """Out-of-core batch loop (src/fast.cpp:189-220, linear /20 variant).
 
         Batches are extended so that each ends on a space character,
         guaranteeing no token crosses a batch boundary
@@ -173,8 +174,10 @@ class _FastNamespace:
         # prefix produced under different inputs.
         vocab_fp = _vocab_fingerprint(v)
         text_fp = _file_fingerprint(text_file)
-        # Reference budget: /2 for fast (src/fast.cpp:195).
-        max_batch = max(memory_limit // 2, 1)
+        # Reference budgets: /2 for fast (src/fast.cpp:195), /20 for
+        # linear "because of SAIS" (src/linear.cpp:349).
+        divisor = 20 if self._engine_name == "linear" else 2
+        max_batch = max(memory_limit // divisor, 1)
         size = os.path.getsize(text_file)
         state_path = out_file + ".state"
 
@@ -265,18 +268,6 @@ class _FastNamespace:
         return out
 
 
-class _NotPortedNamespace:
-    """A namespace whose engine is not ported yet: every call raises."""
-
-    def __init__(self, engine_name: str):
-        self._engine_name = engine_name
-
-    def __getattr__(self, name):
-        if name.startswith("_"):
-            raise AttributeError(name)
-        raise NotImplementedError(_NOT_PORTED[self._engine_name])
-
-
 class _HostEncoder:
     """The native C++ scalar oracle as an engine."""
 
@@ -303,8 +294,9 @@ class _OracleEncoder:
 def make_encoder(
     vocab: Vocabulary, engine: str = "fast", *, cache: bool = False, device="cuda"
 ):
-    """engine: "fast" (the word engine on `device`), "host" or "oracle"
-    (host engines; `device` does not apply).  cache=True (fast engine
+    """engine: "fast" (the word engine on `device`), "linear" (the
+    suffix-array engine on `device`), "host" or "oracle" (host engines;
+    `device` does not apply).  cache=True (fast engine
     only) keeps a vocabulary-lifetime unit cache across encode calls —
     see WordEncoder.  Requesting a cache on an engine that cannot honor
     it is an error, not a silent downgrade."""
@@ -320,6 +312,10 @@ def make_encoder(
         # that times out is RESCUED by the host oracle (identical ids).
         # See WordEncoder.__init__'s docstring for the full policy.
         return WordEncoder(vocab, cache=cache, device_role="auto", device=device)
+    if engine == "linear":
+        from .engine_linear import LinearEncoder
+
+        return LinearEncoder(vocab, device=device)
     if engine == "host":
         return _HostEncoder(vocab)
     if engine == "oracle":
@@ -327,5 +323,5 @@ def make_encoder(
     raise ValueError(f"unknown engine: {engine}")
 
 
-fast = _FastNamespace()
-linear = _NotPortedNamespace("linear")
+fast = _EngineNamespace("fast")
+linear = _EngineNamespace("linear")

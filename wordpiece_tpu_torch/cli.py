@@ -3,10 +3,10 @@
 Usage:
   python -m wordpiece_tpu_torch <mode> <text_file> <vocab_file> [options]
 
-Modes: fast and fast-external (the word engine on --device, "cuda" by
-default), the host engines host and oracle, and decode.  The linear,
-linear-external and fast-stream modes are not ported yet: they exit
-non-zero with a message.
+Modes (reference: tests/runner.cpp:37-64): fast, linear, fast-external
+and linear-external (the word and suffix-array engines on --device,
+"cuda" by default), the host engines host and oracle, and decode.  The
+fast-stream mode is not ported yet: it exits non-zero with a message.
 """
 
 from __future__ import annotations
@@ -15,11 +15,7 @@ import argparse
 import sys
 import time
 
-_NOT_PORTED_MODES = {
-    "linear": "linear",
-    "linear-external": "linear",
-    "fast-stream": "fast-stream",
-}
+_NOT_PORTED_MODES = {"fast-stream"}
 
 
 def main(argv=None) -> int:
@@ -47,7 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--device",
         default="cuda",
-        help="device of the fast modes: cuda (default; fails without a GPU) or cpu",
+        help="device of the fast and linear modes: cuda (default; fails without a GPU) or cpu",
     )
     ap.add_argument(
         "--n-threads",
@@ -62,7 +58,7 @@ def main(argv=None) -> int:
     if args.mode in _NOT_PORTED_MODES:
         from .api import _NOT_PORTED
 
-        raise SystemExit(f"mode {args.mode!r}: {_NOT_PORTED[_NOT_PORTED_MODES[args.mode]]}")
+        raise SystemExit(f"mode {args.mode!r}: {_NOT_PORTED[args.mode]}")
 
     from . import api
     from .core.vocab import read_vocab_file
@@ -79,12 +75,13 @@ def main(argv=None) -> int:
             print(tok)
         return 0
 
-    if args.mode == "fast-external":
+    if args.mode.endswith("-external"):
         if not args.out_file or args.memory_limit_mb is None:
             raise SystemExit("For external mode provide --out-file and --memory-limit-mb")
         if args.memory_limit_mb < 50:
             raise SystemExit("memory_limit cannot be less than 50Mb")
-        api.fast.encode_external(
+        ns = api.linear if args.mode.startswith("linear") else api.fast
+        ns.encode_external(
             args.text_file,
             args.vocab_file,
             args.out_file,

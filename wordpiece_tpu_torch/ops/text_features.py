@@ -1,12 +1,29 @@
-"""Character classes on torch tensors (utf8.cpp:10-29 semantics).
+"""Character classes and per-position text features on torch tensors.
 
-The elementwise classifiers the word kernel's plain version uses; the
-CUDA kernel (csrc/word_kernel.cu) carries the same definitions.  Each
-takes an integer tensor of codepoints and returns a bool tensor of the
-same shape.
+The classifiers (utf8.cpp:10-29 semantics) are the ones the word kernel's
+plain version uses; the CUDA kernel (csrc/word_kernel.cu) carries the same
+definitions.  Each takes an integer tensor of codepoints and returns a
+bool tensor of the same shape.
+
+`compute_features` gives the position-wise quantities that drive the
+linear engine's matching and the shared greedy commit (ops/commit.py):
+
+ - ``space/punct/spacing`` flags;
+ - ``wp``: is_word_prefix[i] = (i==0) | spacing[i] | spacing[i-1]
+   (src/fast.cpp:38-41);
+ - ``window``: the probe window at i = the reference's ``word_len`` scan
+   result (src/fast.cpp:53-60): 1 for punctuation, else
+   min(max_len, n_valid - i, distance to the next spacing char after i);
+ - next-position helpers ``ss`` (skip spaces) and ``wnext`` (next word
+   prefix), both length n+1 with sentinel n, used by the commit step.
+
+Padding positions (i >= n_valid) are treated as spaces, so they are
+skipped and never emit.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -34,3 +51,53 @@ def is_chinese(cp: torch.Tensor) -> torch.Tensor:
     for lo, hi in uni._CHINESE_RANGES:
         out = out | ((cp >= lo) & (cp <= hi))
     return out
+
+
+@dataclasses.dataclass
+class TextFeatures:
+    space: torch.Tensor  # bool[n], pad => True
+    punct: torch.Tensor  # bool[n]
+    spacing: torch.Tensor  # bool[n], pad => True
+    wp: torch.Tensor  # bool[n] is_word_prefix
+    window: torch.Tensor  # int32[n] probe window (>=1)
+    ss: torch.Tensor  # int32[n+1] next non-space index at-or-after (sentinel n)
+    wnext: torch.Tensor  # int32[n+1] next word-prefix index at-or-after (sentinel n)
+
+
+def _next_at_or_after(flag: torch.Tensor, n: int) -> torch.Tensor:
+    """int32[n+1]: for each i, min{j >= i : flag[j]} else n (sentinel)."""
+    pos = torch.arange(n, dtype=torch.int32, device=flag.device)
+    vals = torch.where(flag, pos, n)
+    nxt = torch.flip(torch.cummin(torch.flip(vals, [0]), 0).values, [0])
+    return torch.cat([nxt, nxt.new_full((1,), n)])
+
+
+def compute_features(cp: torch.Tensor, n_valid: int, max_len: int) -> TextFeatures:
+    """cp: int32[n] codepoints (garbage beyond n_valid); n_valid: the true
+    length, a host int."""
+    n = cp.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=cp.device)
+    pad = pos >= n_valid
+
+    space = is_space(cp) | pad
+    punct = is_punct(cp) & ~pad
+    spacing = space | punct | is_chinese(cp) | pad
+
+    prev_spacing = torch.cat([spacing.new_zeros(1), spacing[:-1]])
+    wp = (pos == 0) | spacing | prev_spacing
+
+    # nsp[i+1] is the first spacing index >= i+1, i.e. strictly after i:
+    # the word_len scan checks text[i+k] for k >= 1 (src/fast.cpp:56-59).
+    nsp = _next_at_or_after(spacing, n)
+    dist = nsp[1:] - pos
+
+    window = torch.clamp(n_valid - pos, max=max_len)
+    window = torch.minimum(window, dist)
+    window = torch.where(punct, 1, window)
+    window = torch.clamp(window, min=1).to(torch.int32)
+
+    ss = _next_at_or_after(~space, n)
+    wnext = _next_at_or_after(wp, n)
+    return TextFeatures(
+        space=space, punct=punct, spacing=spacing, wp=wp, window=window, ss=ss, wnext=wnext
+    )
