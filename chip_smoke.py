@@ -9,8 +9,9 @@ JAX package.  Phases, each fatal on failure:
 
  1. the card: name and power limit from nvidia-smi;
  2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel and
-    the compaction kernel, one library); ptxas' registers, shared memory
-    and spills are printed;
+    the compaction kernel, one library) and csrc/match_fast.cu (the
+    fast-stream engine's probe), both at once; ptxas' registers, shared
+    memory and spills are printed;
  3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
     multilingual, astral-plane, UNK-heavy, empty rows; a row count that
     ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
@@ -56,7 +57,27 @@ JAX package.  Phases, each fatal on failure:
     and of each part (sort, LCP and who-tables, features, sweeps and
     match, commit) by CUDA events around CUDA graph replays (the capture
     also proves the batch program has no host sync), the fallback's
-    suffix array and LCP over that batch's S, and each part's bytes bound.
+    suffix array and LCP over that batch's S, and each part's bytes bound;
+ 8. stream kernel vs plain: on the card, the probe kernel
+    (match_positions) equals its plain version, whole [n] outputs with the
+    padding, on the first 1 MB of each of en/ru/ja/zh (their bert-shaped
+    vocabs, whose tables probe chains of two and more slots), on the full
+    10 MB en bucket, and on UNK-heavy, astral-plane, punctuation-dense
+    text, a 2,000-codepoint space-free run and n = 1;
+ 9. stream main path: every kernel's launch count is set to 0, then
+    make_encoder(vocab, "fast-stream", device="cuda") encodes the 10 MB
+    en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
+    stream (byte-identical), and the CLI's fast-stream mode runs on one
+    file; the probe kernel must have launched once per encode and the word
+    kernels not at all.  Then, in this process, a one-rank nccl group:
+    ShardedFastEncoder on a 1-D grid and encode_2d_parallel on a 1 x 1
+    grid encode 10 MB en, equal to the oracle;
+10. stream numbers: the probe kernel's time by CUDA events behind a spin
+    kernel at the en first 1 MB and at the 10 MB en bucket, its plain
+    version's time at both, its bound; the 10 MB en fast-stream rate (min
+    and median of 5) with each part's time (host padding, H2D, features,
+    match, commit, count and D2H), the peak of max_memory_allocated, and
+    one encode under torch.profiler (device time by op class, busy share).
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -71,8 +92,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -345,8 +368,10 @@ def doubling_vocab(rng):
 
 
 def op_class(name: str) -> str:
-    """Class of a CUDA kernel of the linear batch, by its name."""
+    """Class of a CUDA kernel of a torch-ops program, by its name."""
     low = name.lower()
+    if "match_positions" in low:
+        return "match_positions kernel"
     if low.startswith(("memcpy", "memset")):
         return "copies (memcpy)"
     if "sort" in low or "radix" in low:
@@ -383,6 +408,351 @@ def linear_bytes(np_: int, nv_pad: int, nk: int, max_len: int, cap: int) -> dict
     }
 
 
+# ---- phases 8-10: the fast-stream engine ------------------------------------
+ASTRAL_TOKENS = ["𠀀", "𠀁", "##𠀁", "𠀀the", "##𠀂"]
+
+
+def stream_texts(words: list[str], rng) -> dict:
+    """The probe kernel's special inputs as int32 codepoint arrays, from a
+    seed: UNK-heavy, astral-plane and punctuation-dense text, a
+    2,000-codepoint space-free run, and a single codepoint."""
+    import numpy as np
+
+    rare = [chr(int(c)) for c in rng.integers(0x100, 0x250, size=64)]
+    astral = [chr(int(c)) for c in rng.integers(0x20000, 0x2A6E0, size=32)] + ["𠀀", "𠀁", "𠀂"]
+    punct = list(",.!-'();«»·‐‹") + ["!!", "--", "a-b", "x.y"]
+    picked = [words[int(i)] for i in rng.integers(0, len(words), size=20_000)]
+
+    def pick(pool, k):
+        return "".join(pool[int(i)] for i in rng.integers(0, len(pool), size=k))
+
+    texts = {
+        "unk_heavy": " ".join(
+            "".join(c if rng.random() < 0.8 else rare[int(rng.integers(len(rare)))] for c in w)
+            for w in picked
+        ),
+        "astral": " ".join(
+            w if rng.random() < 0.5 else pick(astral, int(rng.integers(1, 4))) + w for w in picked
+        ),
+        "punct_dense": " ".join(pick(punct, int(rng.integers(1, 4))) + w for w in picked),
+        "space_free_2000": "".join(picked)[:2000],
+        "n_1": "a",
+    }
+    return {k: np.array([ord(c) for c in v], dtype=np.int32) for k, v in texts.items()}
+
+
+def stream_check(enc, cps, label: str):
+    """The probe kernel against its plain version on the card, on `cps`
+    padded to its bucket as the engine pads it: both whole int32[n]
+    outputs, exactly.  Returns (the kernel's inputs, its statics, a
+    report row)."""
+    import torch
+
+    from wordpiece_tpu_torch.engine import pad_codepoints
+    from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops.text_features import compute_features
+
+    st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
+    cp_pad = torch.from_numpy(pad_codepoints(cps, st["max_len"])).to(enc.device)
+    n = cp_pad.shape[0] - st["max_len"]
+    feats = compute_features(cp_pad[:n], int(cps.shape[0]), st["max_len"])
+    args = (cp_pad, feats.window, feats.wp, enc.table)
+    got = mf.match_positions(*args, **st)
+    want = mf.match_positions_plain(*args, **st)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: match_positions kernel != plain")
+    row = {"input": label, "codepoints": int(cps.shape[0]), "n": n,
+           "matched": int((got[1] > 0).sum()), "max_len": st["max_len"],
+           "max_probe": st["max_probe"], "log2_size": st["log2_size"], "max_abs_err": err}
+    return args, st, row
+
+
+def stream_bytes_ops(cp_pad, window, wp, table, st) -> tuple[int, int]:
+    """Bytes the probe must move: per position its codepoint, window and
+    kind read and its two outputs written (n * 17), and the table's
+    20-byte rows once.  Operations on these inputs: ~12 per (position,
+    length) it visits (two hash multiply-adds, the home slot's mixing,
+    multiply and shift, the meta), lengths 1..min(max_len, window), and 5
+    per table slot probed there (four compares and the empty test), up to
+    the match or the first empty slot."""
+    import torch
+
+    from wordpiece_tpu_torch.ops.match_fast import (
+        TABLE_FIRST, TABLE_ID, TABLE_K1, TABLE_K2, TABLE_META, probe_keys,
+    )
+
+    n = int(window.shape[0])
+    mask = (1 << st["log2_size"]) - 1
+    k1 = table[:, TABLE_K1].long() & 0xFFFFFFFF
+    k2 = table[:, TABLE_K2].long() & 0xFFFFFFFF
+    first = cp_pad[:n]
+    lengths = torch.zeros((), dtype=torch.int64, device=window.device)
+    probes = torch.zeros((), dtype=torch.int64, device=window.device)
+    for l, h1, h2, bucket, meta in probe_keys(
+        cp_pad, wp, max_len=st["max_len"], log2_size=st["log2_size"],
+        mult1=st["mult1"], mult2=st["mult2"],
+    ):
+        live = window >= l
+        lengths += live.sum()
+        for p in range(st["max_probe"]):
+            slot = (bucket + p) & mask
+            probes += live.sum()
+            hit = ((k1[slot] == h1) & (k2[slot] == h2) & (table[slot, TABLE_META] == meta)
+                   & (table[slot, TABLE_FIRST] == first))
+            live = live & ~hit & (table[slot, TABLE_ID] >= 0)
+    return n * 17 + int(table.shape[0]) * 20, 12 * int(lengths) + 5 * int(probes)
+
+
+def stream_parts(enc, data: bytes):
+    """One fast-stream encode of `data`, part by part, the steps of
+    FastEncoder.encode_codepoints: the host's decode and padding by the
+    host clock, then H2D, features, match, commit, and the count's read
+    with the ids' D2H by CUDA events.  Returns (ids, ms by part)."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch.core import unicode as uni
+    from wordpiece_tpu_torch.engine import pad_codepoints
+    from wordpiece_tpu_torch.engine_linear import _longest_unit
+    from wordpiece_tpu_torch.ops import commit as commit_ops
+    from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops.text_features import compute_features
+
+    st = dict(enc._statics)
+    unk_id = st.pop("unk_id")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cps = uni.decode_utf8(data).astype(np.int32)
+    cp_np = pad_codepoints(cps, st["max_len"])
+    max_chain = _longest_unit(cps)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    cp_pad = torch.from_numpy(cp_np).to(enc.device)
+    ev[1].record()
+    n = cp_pad.shape[0] - st["max_len"]
+    feats = compute_features(cp_pad[:n], int(cps.shape[0]), st["max_len"])
+    ev[2].record()
+    best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
+    ev[3].record()
+    ids, count = commit_ops.commit(best_id, best_len, feats, int(cps.shape[0]), unk_id=unk_id,
+                                   max_chain=max_chain)
+    ev[4].record()
+    out = ids[: int(count)].cpu().numpy()
+    ev[5].record()
+    ev[5].synchronize()
+    names = ("h2d", "features", "match", "commit", "count_and_d2h")
+    parts = {"host_decode_pad": host_ms}
+    parts.update({k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)})
+    return out, parts
+
+
+def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lines_en: list,
+                  rng) -> dict:
+    """Phases 8-10 (module docstring).  Returns the probe kernel's entry of
+    the kernels line."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import wordpiece_tpu_torch as wpt
+    from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.cli import main as cli_main
+    from wordpiece_tpu_torch.core import unicode as uni
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+    from wordpiece_tpu_torch.engine import index_statics
+    from wordpiece_tpu_torch.engine_linear import _longest_unit
+    from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
+    from wordpiece_tpu_torch.ops.match_fast import load_table
+    from wordpiece_tpu_torch.parallel import sharding as sh
+    from wordpiece_tpu_torch.parallel import vocab_parallel as vp
+    from wordpiece_tpu_torch.runtime import loader
+
+    mp = mf.match_positions
+    mc = wk.word_match_commit_multi
+
+    # ---- 8. stream kernel vs plain ------------------------------------------
+    encs = {lang: wpt.make_encoder(vocab, "fast-stream", device="cuda")
+            for lang, (_, vocab, _) in corpora.items()}
+    max_err = 0
+    at = {}  # the kernel's inputs at the shapes timed in phase 10
+    for lang, enc in encs.items():
+        if enc.index.max_probe < 2:
+            raise AssertionError(f"{lang}: the bert-shaped table probes no chain (max_probe 1)")
+        data = corpora[lang][0]
+        head = data[: uni.find_space_cut(data, 1_000_000)]
+        cps = uni.decode_utf8(head).astype(np.int32)
+        args, st, row = stream_check(enc, cps, f"{lang}_1MB")
+        max_err = max(max_err, row["max_abs_err"])
+        emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996", **row})
+        if lang == "en":
+            at["en_1MB"] = (args, st)
+    cps_en = uni.decode_utf8(corpora["en"][0]).astype(np.int32)
+    args, st, row = stream_check(encs["en"], cps_en, "en_10MB")
+    at["en_10MB"] = (args, st)
+    max_err = max(max_err, row["max_abs_err"])
+    emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996", **row})
+    special = wpt.make_encoder(parse_vocab(bert_lines_en + ASTRAL_TOKENS), "fast-stream",
+                               device="cuda")
+    for name, cps in stream_texts(words, rng).items():
+        _, _, row = stream_check(special, cps, name)
+        max_err = max(max_err, row["max_abs_err"])
+        emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996_plus_astral", **row})
+        if name == "astral" and not (cps > 0xFFFF).any():
+            raise AssertionError("the astral text has no astral codepoint")
+
+    # ---- 9. stream main path ------------------------------------------------
+    mp.launches = mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    calls = 0
+    for lang, enc in encs.items():
+        data, _, want = corpora[lang]
+        if lang == "en":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        got = api._encode_with(enc, data)
+        calls += 1
+        ok = got.dtype == np.int32 and np.array_equal(got, want)
+        row = {"phase": "stream_main_path", "corpus": f"{lang}_10MB", "vocab": "bert_28996",
+               "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
+               "table_device": str(enc.table.device), "max_len": enc.index.max_len,
+               "max_probe": enc.index.max_probe, "log2_size": enc.index.log2_size}
+        if lang == "en":
+            row.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                       resident_before_bytes=resident)
+            peak = row["peak_allocated_bytes"] - resident
+        emit_json(row)
+        if not ok:
+            raise AssertionError(f"fast-stream {lang}: ids differ from the native oracle")
+    for name, corpus, lines, ref in goldens:
+        got = api._encode_with(wpt.make_encoder(parse_vocab(lines), "fast-stream", device="cuda"),
+                               corpus)
+        calls += 1
+        ok = got.dtype == np.int32 and got.tobytes() == ref.tobytes()
+        emit_json({"phase": "stream_golden", "file": name, "ids": int(got.shape[0]),
+                   "byte_identical": bool(ok)})
+        if not ok:
+            raise AssertionError(f"fast-stream {name}: ids differ from the reference stream")
+    name, corpus, lines, ref = goldens[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("c.txt", "v.txt", "ids.txt")]
+        with open(paths[0], "wb") as f:
+            f.write(corpus)
+        with open(paths[1], "w") as f:
+            f.write("\n".join(lines))
+        rc = cli_main(["fast-stream", paths[0], paths[1], "--out-file", paths[2],
+                       "--device", "cuda"])
+        calls += 1
+        with open(paths[2]) as f:
+            ok = rc == 0 and f.read() == "".join(f"{int(i)} " for i in ref)
+    emit_json({"phase": "stream_cli", "file": name, "rc": rc, "equal_reference": bool(ok)})
+    if not ok:
+        raise AssertionError("the CLI's fast-stream mode: output differs from the reference")
+    launches = mp.launches
+    word = (mc.launches, wk.compact_from_counts.launches)
+    emit_json({"phase": "stream_main_path_launches", "match_positions": launches,
+               "encode_calls": calls, "word_kernels": list(word)})
+    if launches != calls or launches < 1:
+        raise AssertionError(f"{launches} probe launches for {calls} fast-stream encodes")
+    if any(word):
+        raise AssertionError(f"the fast-stream path launched the word kernels: {word}")
+
+    # One-rank nccl group, in this process: the sharded stream encoders.
+    want_en = corpora["en"][2]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120))
+        try:
+            before = mp.launches
+            enc = sh.ShardedFastEncoder(corpora["en"][1], device="cuda")
+            got = enc.encode_codepoints(cps_en)
+            ok_1d = np.array_equal(got, want_en)
+            grid = sh.make_mesh(1, 1)
+            sidx = vp.build_index_sharded(corpora["en"][1], 1)
+            shards, lens = sh.shard_codepoints(cps_en, 1)
+            ids, counts, total = sh.encode_2d_parallel(
+                sh.pad_shards(shards, sidx.max_len), lens, load_table(sidx.tables[0], enc.device),
+                mesh=grid, **index_statics(sidx), max_chain=_longest_unit(cps_en),
+            )
+            got2 = sh.assemble_ids(ids.cpu().numpy(), counts.cpu().numpy())
+            ok_2d = np.array_equal(got2, want_en) and int(total) == want_en.shape[0]
+            sharded_launches = mp.launches - before
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    emit_json({"phase": "stream_sharded", "corpus": "en_10MB", "backend": backend,
+               "world_size": 1, "device": str(enc.device), "data_parallel_equal_oracle": ok_1d,
+               "grid_2d_equal_oracle": bool(ok_2d), "total": int(total),
+               "launches": sharded_launches})
+    if not (ok_1d and ok_2d) or sharded_launches != 2:
+        raise AssertionError("the sharded stream encoders on one nccl rank differ from the oracle")
+
+    # ---- 10. stream numbers -------------------------------------------------
+    timing = {}
+    for key, (args, st) in at.items():
+        k_ms = device_ms(lambda: mf.match_positions(*args, **st), 50)
+        p_ms = cuda_ms(lambda: mf.match_positions_plain(*args, **st), 3)
+        nbytes, ops = stream_bytes_ops(*args, st)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        timing[key] = {"n": int(args[1].shape[0]), "ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
+                       "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
+        if not all(v > 0 for v in (k_ms, p_ms, nbytes, ops)):
+            raise AssertionError(f"{key}: a time or a bound term was not measured")
+    emit_json({"phase": "stream_kernel_time", "card": card, "launches_per_encode": launches / calls,
+               **timing})
+
+    enc_en, data_en = encs["en"], corpora["en"][0]
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = api._encode_with(enc_en, data_en)
+        runs.append(time.perf_counter() - t0)
+    if not np.array_equal(got, want_en):
+        raise AssertionError("timed fast-stream en encode: ids differ from the native oracle")
+    got, parts = stream_parts(enc_en, data_en)
+    if not np.array_equal(got, want_en):
+        raise AssertionError("fast-stream en encode by parts: ids differ from the native oracle")
+    median_s = float(np.median(runs))
+    emit_json({"phase": "stream_e2e", "corpus": "en_10MB", "vocab": "bert_28996", "card": card,
+               "seconds": runs, "best_s": min(runs), "median_s": median_s,
+               "mb_per_s": len(data_en) / min(runs) / 1e6,
+               "median_mb_per_s": len(data_en) / median_s / 1e6, "parts_ms": parts,
+               "peak_allocated_bytes_over_resident": peak})
+
+    wall, rows, busy_us = device_profile(lambda: api._encode_with(enc_en, data_en), None)
+    classes: dict = {}
+    for name, count, us in rows:
+        c = classes.setdefault(op_class(name), [0, 0.0])
+        c[0] += count
+        c[1] += us
+    emit_json({"phase": "stream_profile", "corpus": "en_10MB", "card": card,
+               "wall_ms": wall * 1e3,
+               "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+               "device_busy_share": None if busy_us is None else busy_us / 1e3 / (wall * 1e3),
+               "by_class_ms": {k: [c, us / 1e3] for k, (c, us) in sorted(classes.items())},
+               "device_rows": rows[:25]})
+
+    t10 = timing["en_10MB"]
+    return {
+        "name": "match_positions",
+        "route": "cuda",
+        "source": "wordpiece_tpu_torch/csrc/match_fast.cu",
+        "replaces": "wordpiece_tpu/ops/match_fast.py:61",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": t10["ms"],
+        "plain_ms": t10["plain_ms"],
+        "bound_ms": t10["bound_ms"],
+        "bound_by": t10["bound_by"],
+        "library_ms": None,
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -409,6 +779,8 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.core.length_tables import build_length_tables, load_length_tables
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
+    from wordpiece_tpu_torch.ops import match_fast_cuda as mfc
+    from wordpiece_tpu_torch.ops.match_fast import match_positions as mp
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.ops.word_kernel import word_match_commit
     from wordpiece_tpu_torch.runtime import loader
@@ -426,10 +798,14 @@ def main(argv=None) -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    wk.build(force=True)
+    # One nvcc per source, started together.
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(m.build, force=True) for m in (wk, mfc)]:
+            fut.result()
     ptxas = [
         ln.strip()
-        for ln in wk.build_log.splitlines()
+        for log in (wk.build_log, mfc.build_log)
+        for ln in log.splitlines()
         if any(k in ln for k in ("registers", "spill", "smem", "Compiling entry"))
     ]
     emit_json({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
@@ -529,7 +905,7 @@ def main(argv=None) -> int:
                    "total": total, "max_abs_err": 0})
 
     # ---- 4. main path -----------------------------------------------------
-    mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
     captured: dict = {}
     dispatches = 0
     main_stats = {}
@@ -644,6 +1020,8 @@ def main(argv=None) -> int:
                              f"{dispatches + api_launches} dispatches")
     if mc.launches_global:
         raise AssertionError("the bert-scale main path read its keys from global memory")
+    if mp.launches:
+        raise AssertionError("the word engine's main path launched the fast-stream probe")
 
     # ---- 5. numbers -------------------------------------------------------
     timing = {}
@@ -732,7 +1110,7 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.ops.suffix_array import lcp_clamped, suffix_array
     from wordpiece_tpu_torch.ops.text_features import compute_features
 
-    mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
     lin_first: dict = {}
 
     def lin_recording(enc, lang):
@@ -839,9 +1217,9 @@ def main(argv=None) -> int:
         raise AssertionError("linear MAX_SLOT_LEN route: wrong ids or a device batch ran")
     word_launches = mc.launches + wk.compact_from_counts.launches
     emit_json({"phase": "linear_main_path_batches", "device_batches": lin_batches,
-               "word_kernel_launches": word_launches})
-    if word_launches:
-        raise AssertionError("the linear path launched the word engine's kernels")
+               "word_kernel_launches": word_launches, "match_positions_launches": mp.launches})
+    if word_launches or mp.launches:
+        raise AssertionError("the linear path launched the word engine's or the probe's kernels")
 
     # ---- 7. linear numbers ----------------------------------------------------
     enc_lin = lin_enc["en"]
@@ -940,6 +1318,10 @@ def main(argv=None) -> int:
                "ms": part_ms, "launches": part_launches, "bytes": nbytes,
                "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}})
 
+    # ---- 8-10. the fast-stream engine --------------------------------------------
+    stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,
+                                  np.random.default_rng(2026))
+
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]
     emit_json({"kernels": [
@@ -969,6 +1351,7 @@ def main(argv=None) -> int:
             "bound_by": t_en["compact"]["bound_by"],
             "library_ms": t_en["compact"]["library_ms"],
         },
+        stream_kernel,
     ]})
     print(card, flush=True)
     emit_json({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,6 +32,9 @@ def test_import_with_jax_blocked():
         "import wordpiece_tpu_torch.ops.commit, wordpiece_tpu_torch.ops.linear_match\n"
         "import wordpiece_tpu_torch.ops.suffix_array, wordpiece_tpu_torch.ops.text_features\n"
         "import wordpiece_tpu_torch.utils.profiling\n"
+        "import wordpiece_tpu_torch.engine, wordpiece_tpu_torch.ops.match_fast\n"
+        "import wordpiece_tpu_torch.ops.match_fast_cuda, wordpiece_tpu_torch.ops.cuda_build\n"
+        "import wordpiece_tpu_torch.parallel.sharding, wordpiece_tpu_torch.parallel.vocab_parallel\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'wordpiece_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
@@ -92,6 +95,8 @@ def _entry_points(tmp_path):
             str(tf), str(vf), str(tmp_path / "o.txt"), 1 << 20
         ),
         "cli_linear": lambda: main(["linear", str(tf), str(vf)]),
+        "make_encoder_fast_stream": lambda: wpt.make_encoder(_vocab(), "fast-stream"),
+        "cli_fast_stream": lambda: main(["fast-stream", str(tf), str(vf)]),
     }
 
 
@@ -99,7 +104,7 @@ def _entry_points(tmp_path):
     "name",
     ["make_encoder", "WordEncoder", "fast.encode", "fast.encode_external", "cli",
      "make_encoder_linear", "LinearEncoder", "linear.encode", "linear.encode_external",
-     "cli_linear"],
+     "cli_linear", "make_encoder_fast_stream", "cli_fast_stream"],
 )
 def test_entry_point_without_gpu_raises(name, tmp_path):
     if torch.cuda.is_available():
@@ -116,12 +121,14 @@ def test_entry_point_on_cpu_runs():
     np.testing.assert_array_equal(enc.encode_bytes(b"b a zz"), [2, 1, 0])
 
 
-@pytest.mark.parametrize("engine", ["fast-stream"])
-def test_not_ported_engines_raise(engine):
+def test_fast_stream_engine_encodes_on_cpu():
     import wordpiece_tpu_torch as wpt
+    from wordpiece_tpu_torch.engine import FastEncoder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wpt.make_encoder(_vocab(), engine, device="cpu")
+    enc = wpt.make_encoder(_vocab(), "fast-stream", device="cpu")
+    assert isinstance(enc, FastEncoder) and enc.table.device.type == "cpu"
+    np.testing.assert_array_equal(enc.encode_codepoints(np.array([98, 32, 97, 32, 122, 122])),
+                                  [2, 1, 0])
 
 
 def test_linear_engine_encodes_on_cpu():
@@ -169,11 +176,18 @@ def test_cli_linear_modes_match_jax(mode, tmp_path, capsys):
     assert mine.read_bytes() == ref.read_bytes() and mine.read_text().startswith("1 2 1 3 ")
 
 
-@pytest.mark.parametrize("mode", ["fast-stream"])
-def test_cli_not_ported_modes_exit_nonzero(mode, tmp_path):
+def test_cli_fast_stream_matches_jax(tmp_path, capsys):
+    from wordpiece_tpu.cli import main as jax_main
     from wordpiece_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit) as exc:
-        main([mode, str(tmp_path / "c.txt"), str(tmp_path / "v.txt")])
-    assert exc.value.code not in (0, None)
-    assert "not ported" in str(exc.value.code)
+    tf = tmp_path / "c.txt"
+    tf.write_text("a b ab zz ba, 中 " * 20)
+    vf = tmp_path / "v.txt"
+    vf.write_text("[UNK]\na\nb\n##b\n,\n中")
+    mine, ref = tmp_path / "mine.txt", tmp_path / "ref.txt"
+    args = ["fast-stream", str(tf), str(vf)]
+    assert main(args + ["--out-file", str(mine), "--device", "cpu"]) == 0
+    out_mine = capsys.readouterr().out
+    assert jax_main(args + ["--out-file", str(ref)]) == 0
+    assert capsys.readouterr().out == out_mine
+    assert mine.read_bytes() == ref.read_bytes() and mine.read_text().startswith("1 2 1 3 ")

@@ -6,12 +6,12 @@ Reference surface (src/word_piece.hpp:1-38):
   word_piece::fast::encodeExternal(text_file, vocab_file, out_file, limit)
   word_piece::linear::{encode, encodeExternal}
 
-`fast` runs the word engine (engine_word.WordEncoder) and `linear` the
-suffix-array engine (engine_linear.LinearEncoder) on the card; their id
+`fast` runs the word engine (engine_word.WordEncoder), `linear` the
+suffix-array engine (engine_linear.LinearEncoder) and `fast-stream` the
+whole-text rolling-hash engine (engine.FastEncoder) on the card; their id
 streams are identical.  Every entry point that reaches the device takes
 `device=`: "cuda" (the default; raises when no GPU is present) or "cpu".
-The `fast-stream` engine is not ported yet and raises
-NotImplementedError; nothing falls back silently to another engine.
+Nothing falls back silently to another engine or device.
 
 Encoder instances cache the built kernel and the vocab's device tables;
 the module-level helpers mirror the reference's one-shot calls.
@@ -34,10 +34,6 @@ from .core.vocab import Vocabulary, parse_vocab, read_vocab_file
 # evicting the LRU entry releases device tables and native handles.
 _ENCODER_CACHE: OrderedDict[tuple, object] = OrderedDict()
 _ENCODER_CACHE_MAX = 8
-
-_NOT_PORTED = {
-    "fast-stream": "the fast-stream engine is not ported yet (ROADMAP.md, queue A, item 2)",
-}
 
 
 def _as_vocab(vocab: Sequence[str] | Vocabulary | str) -> Vocabulary:
@@ -295,13 +291,12 @@ def make_encoder(
     vocab: Vocabulary, engine: str = "fast", *, cache: bool = False, device="cuda"
 ):
     """engine: "fast" (the word engine on `device`), "linear" (the
-    suffix-array engine on `device`), "host" or "oracle" (host engines;
+    suffix-array engine on `device`), "fast-stream" (the whole-text
+    rolling-hash engine on `device`), "host" or "oracle" (host engines;
     `device` does not apply).  cache=True (fast engine
     only) keeps a vocabulary-lifetime unit cache across encode calls —
     see WordEncoder.  Requesting a cache on an engine that cannot honor
     it is an error, not a silent downgrade."""
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[engine])
     if cache and engine != "fast":
         raise ValueError(f"cache=True is only supported by engine='fast', not {engine!r}")
     if engine == "fast":
@@ -316,6 +311,10 @@ def make_encoder(
         from .engine_linear import LinearEncoder
 
         return LinearEncoder(vocab, device=device)
+    if engine == "fast-stream":
+        from .engine import FastEncoder
+
+        return FastEncoder(vocab, device=device)
     if engine == "host":
         return _HostEncoder(vocab)
     if engine == "oracle":

@@ -4,9 +4,9 @@ Usage:
   python -m wordpiece_tpu_torch <mode> <text_file> <vocab_file> [options]
 
 Modes (reference: tests/runner.cpp:37-64): fast, linear, fast-external
-and linear-external (the word and suffix-array engines on --device,
-"cuda" by default), the host engines host and oracle, and decode.  The
-fast-stream mode is not ported yet: it exits non-zero with a message.
+and linear-external (the word and suffix-array engines), fast-stream (the
+whole-text rolling-hash engine), all on --device ("cuda" by default), the
+host engines host and oracle, and decode.
 """
 
 from __future__ import annotations
@@ -14,9 +14,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-_NOT_PORTED_MODES = {"fast-stream"}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="wordpiece_tpu_torch")
@@ -43,7 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--device",
         default="cuda",
-        help="device of the fast and linear modes: cuda (default; fails without a GPU) or cpu",
+        help="device of the fast, linear and fast-stream modes: cuda (default; fails "
+        "without a GPU) or cpu",
     )
     ap.add_argument(
         "--n-threads",
@@ -54,11 +52,6 @@ def main(argv=None) -> int:
         "WORDPIECE_TPU_THREADS env var)",
     )
     args = ap.parse_args(argv)
-
-    if args.mode in _NOT_PORTED_MODES:
-        from .api import _NOT_PORTED
-
-        raise SystemExit(f"mode {args.mode!r}: {_NOT_PORTED[args.mode]}")
 
     from . import api
     from .core.vocab import read_vocab_file

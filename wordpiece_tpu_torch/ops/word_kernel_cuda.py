@@ -8,8 +8,8 @@ Two kernels live in csrc/word_kernel.cu:
     package's word_match_commit_compact (compact_from_counts).
 They are compiled with nvcc for sm_90a into one library with a plain C
 interface, at first use, into this package's build/ directory (ignored by
-git), and loaded with ctypes.  Nothing here is compiled or imported from
-CUDA at module import.
+git; ops/cuda_build.py), and loaded with ctypes.  Nothing here is compiled
+or imported from CUDA at module import.
 
 Each wrapper takes its kernel's plain version only for tensors that lie
 on the CPU (ops/word_kernel.py for the match, compact_emits for the
@@ -37,26 +37,17 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
 from ..core.length_tables import DeviceTables
+from .cuda_build import BUILD_DIR, CSRC_DIR, build_library
 from .word_kernel import word_match_commit
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "word_kernel.cu")
-# build/ is listed in .gitignore: the library is built on the machine that
-# runs it, never committed.
-BUILD_DIR = os.path.join(_PKG, "build")
+SOURCE = os.path.join(CSRC_DIR, "word_kernel.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libword_kernel.so")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 MAX_BUCKETS = 8  # kMaxBuckets of the kernel's bucket descriptor
 
 _LOCK = threading.Lock()
@@ -69,17 +60,6 @@ _PI = ctypes.POINTER(ctypes.c_int)
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA word kernels cannot be built")
-    return found
-
-
 def build(*, force: bool = False):
     """Compile csrc/word_kernel.cu (if the library is missing, older than
     the source, or `force`) and load it.  Returns the ctypes library;
@@ -88,21 +68,9 @@ def build(*, force: bool = False):
     with _LOCK:
         if _LIB is not None and not force:
             return _LIB
-        stale = (
-            force
-            or not os.path.exists(LIBRARY)
-            or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)
-        )
-        if stale:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
-            os.replace(tmp, LIBRARY)
-        lib = ctypes.CDLL(LIBRARY)
+        lib, log = build_library(SOURCE, LIBRARY, force=force)
+        if log is not None:
+            build_log = log
         fn = lib.wp_word_match_commit
         fn.restype = ctypes.c_int
         fn.argtypes = [
