@@ -19,10 +19,13 @@ JAX package.  Phases, each fatal on failure:
     with the keys staged in shared memory and once with the global-key
     layout forced; the five matrices of a width go through one dispatch
     whose compact vector (compaction kernel) must equal the plain
-    compaction (compact_emits), with a cap above and below the total (the
-    overflow keeps the true total, whole counts and the emit matrices);
-    then one dispatch of all four widths in mixed dtypes and an empty
-    bucket, in both key layouts.  Integers: tolerance exactly 0;
+    compaction (compact_emits), with a cap above, at and below the total
+    (the overflow keeps the true total, whole counts and the emit
+    matrices); then one dispatch of all four widths in mixed dtypes and an
+    empty bucket, in both key layouts.  Then the compaction alone on
+    synthetic emits: the en first dispatch's shapes and 200,000 units
+    (many blocks) with the cap above, at and below the total, and two
+    calls back to back on two streams.  Integers: tolerance exactly 0;
  4. main path: every kernel's launch count is set to 0, then the fast
     engine encodes 10 MB en/ru/ja/zh corpora on the bert-shaped vocab
     through the user entry points (ids must equal the native oracle), 3 MB
@@ -35,7 +38,9 @@ JAX package.  Phases, each fatal on failure:
     by CUDA events (the kernels behind a spin kernel, so that the events
     time the card and not the host's enqueue), beside their plain
     versions, torch.masked_select (the one PyTorch call that computes the
-    compaction) and each kernel's bound; the 10 MB en encode rate (min and
+    compaction) and each kernel's bound; the profile of one en dispatch
+    must show the two word kernels and nothing else (no scan launch
+    between them); the 10 MB en encode rate (min and
     median of 5) with its stage breakdown, and one more such encode under
     torch.profiler: device time per kernel and the card's busy share of
     the wall time (--trace PATH also writes its trace);
@@ -60,21 +65,27 @@ JAX package.  Phases, each fatal on failure:
     suffix array and LCP over that batch's S, and each part's bytes bound;
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
-    padding, on the first 1 MB of each of en/ru/ja/zh (their bert-shaped
-    vocabs, whose tables probe chains of two and more slots), on the full
-    10 MB en bucket, and on UNK-heavy, astral-plane, punctuation-dense
-    text, a 2,000-codepoint space-free run and n = 1;
+    padding, in the tag layout the kernel chooses and with global tags forced,
+    on the first 1 MB of each of en/ru/ja/zh (their bert-shaped vocabs,
+    whose tables probe chains of two and more slots), on the full 10 MB en
+    bucket, on UNK-heavy, astral-plane, punctuation-dense text, a
+    2,000-codepoint space-free run and n = 1, on a 150,000-token vocab
+    whose 2^20 tags do not fit in shared memory, and on the 5,000-symbol
+    vocab of 49-90-codepoint tokens (max_len past the kernel's 32-bit
+    mask: the ascending pass);
  9. stream main path: every kernel's launch count is set to 0, then
     make_encoder(vocab, "fast-stream", device="cuda") encodes the 10 MB
     en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
     stream (byte-identical), and the CLI's fast-stream mode runs on one
-    file; the probe kernel must have launched once per encode and the word
-    kernels not at all.  Then, in this process, a one-rank nccl group:
+    file; the probe kernel must have launched once per encode, with its
+    tags in shared memory (read from its count of global-tag launches),
+    and the word kernels not at all.  Then, in this process, a one-rank nccl group:
     ShardedFastEncoder on a 1-D grid and encode_2d_parallel on a 1 x 1
     grid encode 10 MB en, equal to the oracle;
 10. stream numbers: the probe kernel's time by CUDA events behind a spin
-    kernel at the en first 1 MB and at the 10 MB en bucket, its plain
-    version's time at both, its bound; the 10 MB en fast-stream rate (min
+    kernel at the en first 1 MB and at the 10 MB en bucket (shared tags,
+    and global tags forced), its plain version's time at both, its bound;
+    the 10 MB en fast-stream rate (min
     and median of 5) with each part's time (host padding, H2D, features,
     match, commit, count and D2H), the peak of max_memory_allocated, and
     one encode under torch.profiler (device time by op class, busy share).
@@ -334,6 +345,80 @@ def compact_bytes_ops(emits, total: int, cap: int) -> tuple[int, int]:
     return cells * 4 + units * 4 + (1 + kept) * 4, cells + units + 2 * kept
 
 
+def synthetic_emits(rng, shapes, dev):
+    """Emit matrices int32[U, W] of the given shapes, from a seed: a token
+    id in 30% of the cells, -2 elsewhere; and the compact vector's counts
+    segment for them."""
+    import numpy as np
+    import torch
+
+    emits = []
+    for u, w in shapes:
+        ids = rng.integers(0, 30_000, size=(u, w), dtype=np.int32)
+        emits.append(torch.from_numpy(np.where(rng.random((u, w)) < 0.3, ids, -2)
+                                      .astype(np.int32)).to(dev))
+    counts = torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits])
+    return emits, counts
+
+
+def compact_cases(dev, rng) -> list:
+    """The compaction kernel against compact_emits on synthetic emits: the
+    en first dispatch's bucket shapes and 200,000 units in four buckets of
+    mixed widths (many blocks, several chunks a block), with the cap above,
+    at and below the total; then two calls back to back on two streams.
+    Whole defined entries, exactly.  Returns one report row per case."""
+    import torch
+
+    from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
+
+    cc = wk.compact_from_counts
+
+    def run(emits, counts, cap, stream=None):
+        n = counts.shape[0]
+        fused = torch.full((1 + n + cap,), -9, dtype=torch.int32, device=dev)
+        fused[1 : 1 + n] = counts
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream())
+        before = cc.launches
+        with torch.cuda.stream(stream or torch.cuda.current_stream()):
+            cc(emits, fused, cap)
+        if cc.launches != before + 1:
+            raise AssertionError("the compaction did not launch once")
+        return fused, n
+
+    def check(fused, emits, n, total, cap, label):
+        torch.cuda.synchronize()
+        want = wk.compact_emits(emits, cap)
+        defined = 1 + n + min(total, cap)
+        err = int((fused[:defined].long() - want[:defined].long()).abs().max())
+        if err or int(fused[0]) != total:
+            raise AssertionError(f"{label}: compaction kernel != plain at cap {cap}")
+        return err
+
+    rows = []
+    cases = {"en_first_dispatch_shapes": [(11_280, 7), (2_986, 15), (2, 31)],
+             "200k_units": [(120_000, 7), (60_000, 15), (15_000, 31), (5_000, 127)]}
+    for name, shapes in cases.items():
+        emits, counts = synthetic_emits(rng, shapes, dev)
+        total = int(counts.sum())
+        for cap in (total + 7, total, total // 2):
+            fused, n = run(emits, counts, cap)
+            err = check(fused, emits, n, total, cap, name)
+            rows.append({"case": name, "buckets": [list(s) for s in shapes], "units": n,
+                         "total": total, "cap": cap, "max_abs_err": err})
+
+    # Two calls back to back on two streams, each with its own scratch.
+    sets = [synthetic_emits(rng, [(40_000, 7), (9_000, 15)], dev),
+            synthetic_emits(rng, [(30_000, 15), (700, 127)], dev)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    runs = [(*run(e, c, int(c.sum()), st), e, int(c.sum())) for (e, c), st in zip(sets, streams)]
+    for k, (fused, n, e, t) in enumerate(runs):
+        err = check(fused, e, n, t, t, f"stream {k}")
+        rows.append({"case": f"two_streams_{k}", "units": n, "total": t, "cap": t,
+                     "max_abs_err": err})
+    return rows
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CORE_OPS_PER_S * 1e3
@@ -444,29 +529,64 @@ def stream_texts(words: list[str], rng) -> dict:
 def stream_check(enc, cps, label: str):
     """The probe kernel against its plain version on the card, on `cps`
     padded to its bucket as the engine pads it: both whole int32[n]
-    outputs, exactly.  Returns (the kernel's inputs, its statics, a
-    report row)."""
+    outputs, exactly, in the tag layout the kernel chooses (read from its
+    count of global-tag launches) and with global tags forced.  Returns
+    (the kernel's inputs, its statics, a report row)."""
     import torch
 
     from wordpiece_tpu_torch.engine import pad_codepoints
     from wordpiece_tpu_torch.ops import match_fast as mf
     from wordpiece_tpu_torch.ops.text_features import compute_features
 
+    mp = mf.match_positions
     st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
     cp_pad = torch.from_numpy(pad_codepoints(cps, st["max_len"])).to(enc.device)
     n = cp_pad.shape[0] - st["max_len"]
     feats = compute_features(cp_pad[:n], int(cps.shape[0]), st["max_len"])
     args = (cp_pad, feats.window, feats.wp, enc.table)
-    got = mf.match_positions(*args, **st)
-    want = mf.match_positions_plain(*args, **st)
-    torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"{label}: match_positions kernel != plain")
+    want = mf.match_positions_plain(cp_pad, feats.window, feats.wp, enc.table.rows, **st)
+    errs = {}
+    for forced in (False, True):
+        before = (mp.launches, mp.launches_global)
+        got = mp(*args, **st, global_tags=forced)
+        layout = "global" if mp.launches_global > before[1] else "shared"
+        if mp.launches != before[0] + 1 or (forced and layout != "global"):
+            raise AssertionError(f"{label}: not one launch in the expected tag layout")
+        if not forced:
+            chosen = layout
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{label}: match_positions kernel != plain ({layout} tags)")
+        errs["forced_global" if forced else chosen] = err
     row = {"input": label, "codepoints": int(cps.shape[0]), "n": n,
-           "matched": int((got[1] > 0).sum()), "max_len": st["max_len"],
-           "max_probe": st["max_probe"], "log2_size": st["log2_size"], "max_abs_err": err}
+           "matched": int((want[1] > 0).sum()), "max_len": st["max_len"],
+           "max_probe": st["max_probe"], "log2_size": st["log2_size"], "tags": chosen,
+           "pass_order": "longest_first" if st["max_len"] <= 32 else "ascending",
+           "max_abs_err_by_layout": errs, "max_abs_err": max(errs.values())}
     return args, st, row
+
+
+def big_vocab(bert_lines: list, rng, size: int = 150_000):
+    """A vocabulary of `size` tokens whose probe table does not fit in
+    shared memory (2^20 slots): the bert-shaped lines, then distinct
+    seeded tokens of 2-10 Latin and Cyrillic letters, a third of them
+    suffixes; and a text of those tokens as words."""
+    alphabet = [chr(c) for c in range(ord("a"), ord("z") + 1)] + [chr(c) for c in range(0x430, 0x450)]
+    seen = set(bert_lines)
+    lines = list(bert_lines)
+    words = []
+    while len(lines) < size:
+        tok = "".join(alphabet[int(i)] for i in rng.integers(0, len(alphabet),
+                                                               size=int(rng.integers(2, 11))))
+        if rng.random() < 0.33:
+            tok = "##" + tok
+        elif len(words) < 40_000:
+            words.append(tok)
+        if tok not in seen:
+            seen.add(tok)
+            lines.append(tok)
+    return lines, " ".join(words)
 
 
 def stream_bytes_ops(cp_pad, window, wp, table, st) -> tuple[int, int]:
@@ -605,9 +725,30 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996_plus_astral", **row})
         if name == "astral" and not (cps > 0xFFFF).any():
             raise AssertionError("the astral text has no astral codepoint")
+    # A table whose tags do not fit in shared memory (2^20 slots).
+    big_lines, big_text = big_vocab(bert_lines_en, rng)
+    big = wpt.make_encoder(parse_vocab(big_lines), "fast-stream", device="cuda")
+    head = corpora["en"][0][: uni.find_space_cut(corpora["en"][0], 1_000_000)]
+    cps = uni.decode_utf8(head + b" " + big_text.encode()).astype(np.int32)
+    _, _, row = stream_check(big, cps, "en_1MB_plus_big_vocab_words")
+    max_err = max(max_err, row["max_abs_err"])
+    emit_json({"phase": "stream_kernel_vs_plain", "vocab": f"big_{len(big_lines)}", **row})
+    if row["log2_size"] < 18 or row["tags"] != "global":
+        raise AssertionError(f"the big vocab's table (2^{row['log2_size']} slots) "
+                             f"kept its tags in {row['tags']} memory")
+    # Tokens of 49-90 codepoints: max_len past the kernel's 32-bit mask.
+    d_lines, d_text = doubling_vocab(np.random.default_rng(7))
+    longv = wpt.make_encoder(parse_vocab(d_lines), "fast-stream", device="cuda")
+    _, _, row = stream_check(longv, np.array([ord(c) for c in d_text], dtype=np.int32),
+                             "long_tokens")
+    max_err = max(max_err, row["max_abs_err"])
+    emit_json({"phase": "stream_kernel_vs_plain", "vocab": f"long_tokens_{len(d_lines)}", **row})
+    if row["max_len"] <= 32 or row["matched"] == 0:
+        raise AssertionError("the long-token vocab did not take the ascending pass")
 
     # ---- 9. stream main path ------------------------------------------------
-    mp.launches = mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
+    mp.launches = mp.launches_global = 0
+    mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
     calls = 0
     for lang, enc in encs.items():
         data, _, want = corpora[lang]
@@ -653,12 +794,19 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     emit_json({"phase": "stream_cli", "file": name, "rc": rc, "equal_reference": bool(ok)})
     if not ok:
         raise AssertionError("the CLI's fast-stream mode: output differs from the reference")
-    launches = mp.launches
+    launches, launches_global = mp.launches, mp.launches_global
     word = (mc.launches, wk.compact_from_counts.launches)
     emit_json({"phase": "stream_main_path_launches", "match_positions": launches,
+               "match_positions_global_tags": mp.launches_global,
                "encode_calls": calls, "word_kernels": list(word)})
     if launches != calls or launches < 1:
         raise AssertionError(f"{launches} probe launches for {calls} fast-stream encodes")
+    if launches_global:
+        raise AssertionError("the bert-scale stream path read its tags from global memory")
+    en_st = encs["en"]._statics
+    stream_layout = (f"{'global' if launches_global else 'shared'} tags "
+                     f"(en: 2^{en_st['log2_size']} slots), "
+                     f"{'longest match first' if en_st['max_len'] <= 32 else 'ascending'}")
     if any(word):
         raise AssertionError(f"the fast-stream path launched the word kernels: {word}")
 
@@ -696,12 +844,20 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     timing = {}
     for key, (args, st) in at.items():
         k_ms = device_ms(lambda: mf.match_positions(*args, **st), 50)
-        p_ms = cuda_ms(lambda: mf.match_positions_plain(*args, **st), 3)
-        nbytes, ops = stream_bytes_ops(*args, st)
+        kg_ms = device_ms(lambda: mf.match_positions(*args, **st, global_tags=True), 50)
+        rows_args = (*args[:3], args[3].rows)
+        p_ms = cuda_ms(lambda: mf.match_positions_plain(*rows_args, **st), 3)
+        nbytes, ops = stream_bytes_ops(*rows_args, st)
         b_ms, b_by = bound_ms(nbytes, ops)
-        timing[key] = {"n": int(args[1].shape[0]), "ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
-                       "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
-        if not all(v > 0 for v in (k_ms, p_ms, nbytes, ops)):
+        # Lengths probed per position, and per warp of 32 positions: the
+        # kernel's lanes wait for their warp's longest window.
+        lengths = args[1].clamp(min=0, max=st["max_len"]).float()
+        warp_max = lengths[: lengths.numel() // 32 * 32].view(-1, 32).max(dim=1).values
+        timing[key] = {"n": int(args[1].shape[0]), "ms": k_ms, "ms_global_tags": kg_ms,
+                       "plain_ms": p_ms, "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+                       "bound_by": b_by, "mean_lengths": float(lengths.mean()),
+                       "mean_warp_max_lengths": float(warp_max.mean())}
+        if not all(v > 0 for v in (k_ms, kg_ms, p_ms, nbytes, ops)):
             raise AssertionError(f"{key}: a time or a bound term was not measured")
     emit_json({"phase": "stream_kernel_time", "card": card, "launches_per_encode": launches / calls,
                **timing})
@@ -743,6 +899,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         "route": "cuda",
         "source": "wordpiece_tpu_torch/csrc/match_fast.cu",
         "replaces": "wordpiece_tpu/ops/match_fast.py:61",
+        "layout": stream_layout,
         "launches": launches,
         "max_abs_err": max_err,
         "ms": t10["ms"],
@@ -852,7 +1009,7 @@ def main(argv=None) -> int:
         n = sum(int(c.shape[0]) for c in cps)
         total = sum(int((w != -2).sum()) for w in wants)
         shapes = [tuple(c.shape) for c in cps]
-        for cap in (total + 7, total // 2):
+        for cap in (total + 7, total, total // 2):
             fused, kept = wk.word_match_commit_compact(cps, tabs, cap=cap, global_keys=global_keys)
             want = wk.compact_emits(wants, cap)
             defined = 1 + n + min(total, cap)
@@ -884,7 +1041,7 @@ def main(argv=None) -> int:
             wants.append(want)
         total = check_dispatch(cps, wants, tables, False, f"width {width}, five buckets")
         emit_json({"phase": "compact_vs_plain", "width": width, "buckets": len(cps),
-                   "total": total, "caps": [total + 7, total // 2], "max_abs_err": 0})
+                   "total": total, "caps": [total + 7, total, total // 2], "max_abs_err": 0})
 
     # One dispatch of every width, in mixed dtypes, with an empty bucket.
     mixed_np = [unit_matrices(7, words, rng)["astral"],
@@ -903,6 +1060,12 @@ def main(argv=None) -> int:
         emit_json({"phase": "mixed_dispatch_vs_plain", "keys": keys,
                    "buckets": [list(m.shape) for m in mixed], "dtypes": dtypes,
                    "total": total, "max_abs_err": 0})
+
+    # The compaction alone, on synthetic emit matrices: many blocks, and
+    # back-to-back calls on two streams.
+    for row in compact_cases(dev, np.random.default_rng(5)):
+        max_err["compact"] = max(max_err["compact"], row["max_abs_err"])
+        emit_json({"phase": "compact_cases_vs_plain", **row})
 
     # ---- 4. main path -----------------------------------------------------
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
@@ -1009,16 +1172,18 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: device_fallbacks={enc.device_fallbacks}, "
                                  f"verify_repairs={enc.verify_repairs}")
     launches = {"match": mc.launches, "compact": wk.compact_from_counts.launches}
+    match_global = mc.launches_global
     emit_json({"phase": "main_path_launches", "word_match_commit": launches["match"],
-               "word_match_commit_global_keys": mc.launches_global,
-               "compact": launches["compact"], "dispatches": dispatches + api_launches,
+               "word_match_commit_global_keys": match_global,
+               "compact": launches["compact"],
+               "dispatches": dispatches + api_launches,
                "per_10MB": main_stats})
     if min(launches.values()) <= 0:
         raise AssertionError("the main path never launched a CUDA kernel")
     if set(launches.values()) != {dispatches + api_launches}:
         raise AssertionError(f"not one launch of each kernel per dispatch: {launches}, "
                              f"{dispatches + api_launches} dispatches")
-    if mc.launches_global:
+    if match_global:
         raise AssertionError("the bert-scale main path read its keys from global memory")
     if mp.launches:
         raise AssertionError("the word engine's main path launched the fast-stream probe")
@@ -1044,7 +1209,6 @@ def main(argv=None) -> int:
         k_ms = device_ms(lambda: mc(cps, tabs, counts=counts), 200)
         kg_ms = device_ms(lambda: mc(cps, tabs, counts=counts, global_keys=True), 200)
         c_ms = device_ms(lambda: wk.compact_from_counts(emits, fused, cap), 200)
-        scan_ms = device_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 200)
         kp_ms = cuda_ms(lambda: [plain_emit(cp, tabs) for cp in cps], 5)
         cp_ms = cuda_ms(lambda: wk.compact_emits(emits, cap), 50)
         # torch.masked_select sizes its output on the host, so each call
@@ -1063,12 +1227,23 @@ def main(argv=None) -> int:
         timing[lang] = {
             "match": {"ms": k_ms, "ms_global_keys": kg_ms, "plain_ms": kp_ms, "bytes": kb,
                       "ops": ko, "bound_ms": k_bound, "bound_by": k_by},
-            "compact": {"ms": c_ms, "cumsum_ms": scan_ms, "plain_ms": cp_ms,
+            "compact": {"ms": c_ms, "plain_ms": cp_ms,
                         "library_ms": lib_ms, "bytes": cb, "ops": co, "bound_ms": c_bound,
                         "bound_by": c_by},
         }
         if not all(v > 0 for v in (k_ms, kg_ms, c_ms, kp_ms, cp_ms, lib_ms, kb, ko, cb, co)):
             raise AssertionError(f"{lang}: a time or a bound term was not measured")
+        if lang == "en":
+            # What one dispatch launches on the card: the two word kernels
+            # and nothing between them (the scan is inside the compaction).
+            _, rows, _ = device_profile(lambda: wk.word_match_commit_compact(cps, tabs, cap=cap),
+                                        None)
+            launched = {name: count for name, count, _ in rows}
+            emit_json({"phase": "dispatch_kernels", "corpus": "en_10MB", "kernels": launched})
+            if (len(launched) != 2 or sum(launched.values()) != 2
+                    or not any("word_match_commit_kernel" in k for k in launched)
+                    or not any("compact_kernel" in k for k in launched)):
+                raise AssertionError(f"one dispatch launched {launched}, not the two word kernels")
         emit_json({"phase": "kernel_time", "corpus": f"{lang}_10MB",
                    "shapes": "first dispatch, every non-empty bucket", "card": card,
                    "buckets": [{"width": w, "units": u, "dtype": str(c.dtype)}
@@ -1330,6 +1505,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
             "replaces": "wordpiece_tpu/ops/word_kernel_pallas.py:68",
+            "layout": "global keys" if match_global else "shared keys",
             "launches": launches["match"],
             "max_abs_err": max_err["match"],
             "ms": t_en["match"]["ms"],
@@ -1343,6 +1519,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
             "replaces": "wordpiece_tpu/ops/word_kernel_pallas.py:349",
+            "layout": "one cooperative launch, scan inside",
             "launches": launches["compact"],
             "max_abs_err": max_err["compact"],
             "ms": t_en["compact"]["ms"],

@@ -4,6 +4,7 @@ and features.  The CUDA kernel (csrc/match_fast.cu) runs only on the card,
 where chip_smoke.py holds it against the plain version tested here.
 Integers: exact."""
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -104,8 +105,8 @@ def test_pack_and_load_table_equal_jax(name):
     index = build_index(parse_vocab(lines))
     want = np.asarray(jmf.pack_table(jax_build_index(jax_parse_vocab(lines))))
     for table in (match_fast.pack_table(index, "cpu"), match_fast.load_table(want, "cpu")):
-        assert table.dtype == torch.int32 and table.is_contiguous()
-        np.testing.assert_array_equal(table.numpy(), want)
+        assert table.rows.dtype == torch.int32 and table.rows.shape == want.shape
+        np.testing.assert_array_equal(table.rows.numpy(), want)
     np.testing.assert_array_equal(match_fast.pack_table_np(index), want)
 
 
@@ -149,7 +150,7 @@ def test_chains_have_no_empty_slot():
     between, and no two entries share (k1, k2, meta)."""
     index = build_index(parse_vocab(vocab_lines()))
     assert index.max_probe >= 2
-    table = match_fast.pack_table(index, "cpu").to(torch.int64)
+    table = match_fast.pack_table(index, "cpu").rows.to(torch.int64)
     occupied = torch.nonzero(table[:, match_fast.TABLE_ID] >= 0).reshape(-1)
     k1, k2, meta = (table[occupied, c] for c in range(3))
     home = match_fast._bucket(k1 & 0xFFFFFFFF, k2 & 0xFFFFFFFF, meta & 1, meta >> 1,
@@ -164,7 +165,8 @@ def test_chains_have_no_empty_slot():
 
 
 @pytest.mark.parametrize("bad", ["window_dtype", "wp_dtype", "cp_pad_length", "strided_window",
-                                 "table_rows", "table_width"])
+                                 "table_rows", "table_width", "tags_dtype", "tags_size",
+                                 "slots_strided", "log2_size"])
 def test_kernel_binding_checks_before_it_builds(bad):
     """The CUDA binding refuses what the kernel cannot take before it
     builds or launches anything (so the check runs here, on the CPU)."""
@@ -173,29 +175,143 @@ def test_kernel_binding_checks_before_it_builds(bad):
     index = build_index(parse_vocab(["[UNK]", "ab", "##c"]))
     st = statics_of(index)
     n = 130
+    table = match_fast.pack_table(index, "cpu")
     args = dict(
         cp_pad=torch.zeros(n + st["max_len"], dtype=torch.int32),
         window=torch.ones(n, dtype=torch.int32),
         wp=torch.ones(n, dtype=torch.bool),
-        table=match_fast.pack_table(index, "cpu"),
+        table=table,
     )
+
+    def with_(**parts):
+        return {"table": dataclasses.replace(table, **parts)}
+
+    size = table.tags.shape[0]
     args.update({
         "window_dtype": {"window": args["window"].long()},
         "wp_dtype": {"wp": args["wp"].to(torch.uint8)},
         "cp_pad_length": {"cp_pad": args["cp_pad"][:-1]},
         "strided_window": {"window": torch.ones(2 * n, dtype=torch.int32)[::2]},
-        "table_rows": {"table": args["table"][:-1]},
-        "table_width": {"table": args["table"][:, :4].contiguous()},
+        "table_rows": with_(slots=table.slots[:-1]),
+        "table_width": with_(slots=table.rows),
+        "tags_dtype": with_(tags=table.tags.to(torch.int32)),
+        "tags_size": with_(tags=torch.zeros(2 * size, dtype=torch.uint8)[:size - 16]),
+        "slots_strided": with_(slots=torch.zeros((size, 16), dtype=torch.int32)[:, :8]),
+        "log2_size": {},
     }[bad])
+    if bad == "log2_size":
+        st["log2_size"] = 31
     with pytest.raises(ValueError):
         match_fast_cuda.launch(**args, **st)
 
 
 def test_match_positions_rejects_mixed_devices():
     index = build_index(parse_vocab(["[UNK]", "a"]))
-    table = match_fast.pack_table(index, "cpu")
+    table = match_fast.load_table(match_fast.pack_table_np(index), "meta")
+    assert table.device.type == "meta" and table.tags.device.type == "meta"
     with pytest.raises(ValueError, match="meta"):
         match_fast.match_positions(
             torch.zeros(4 + index.max_len, dtype=torch.int32), torch.ones(4, dtype=torch.int32),
-            torch.ones(4, dtype=torch.bool), table.to("meta"), **statics_of(index),
+            torch.ones(4, dtype=torch.bool), table, **statics_of(index),
         )
+
+
+# ---- the CUDA kernel's layout: tags and 32-byte rows -------------------------
+
+def _tag_reference(k1: np.ndarray) -> np.ndarray:
+    """tag_of in plain uint32 arithmetic, as csrc/match_fast.cu computes it."""
+    t = (k1.astype(np.uint32) * np.uint32(match_fast.TAG_MIX)) >> np.uint32(24)
+    return np.where(t == 0, 1, t).astype(np.int64)
+
+
+def test_tag_of_equals_uint32_arithmetic():
+    rng = np.random.default_rng(11)
+    k1 = rng.integers(0, 1 << 32, size=20_000, dtype=np.uint64).astype(np.uint32)
+    inverse = pow(match_fast.TAG_MIX, -1, 1 << 32)  # k1 whose tag byte is 0
+    k1[:4] = [0, 0xFFFFFFFF, (inverse * 5) & 0xFFFFFFFF, inverse]
+    got = match_fast.tag_of(torch.from_numpy(k1.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, _tag_reference(k1))
+    assert got[0] == 1 and got[2] == 1 and got[3] == 1  # a 0 byte becomes 1
+    assert got.min() >= 1 and got.max() <= 255
+
+
+@pytest.mark.parametrize("name", ["en", "multilingual", "tiny"])
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_tags_and_slots_from_either_package(name, source):
+    """The kernel's layout of the port's table and of the JAX package's:
+    tag 0 exactly at the empty slots, tag_of(k1) at the occupied ones, and
+    32-byte rows carrying the five fields of the JAX pack_table, then
+    three zeros."""
+    lines = {"en": make_vocab(make_corpus(30_000, lang="en"), vocab_size=1500),
+             "multilingual": vocab_lines(), "tiny": ["[UNK]", "a"]}[name]
+    want = np.asarray(jmf.pack_table(jax_build_index(jax_parse_vocab(lines))))
+    if source == "port":
+        table = match_fast.pack_table(build_index(parse_vocab(lines)), "cpu")
+    else:
+        table = match_fast.load_table(want, "cpu")
+    size = want.shape[0]
+    assert table.tags.dtype == torch.uint8 and table.tags.shape == (size,)
+    assert table.slots.dtype == torch.int32 and table.slots.shape == (size, 8)
+    assert table.tags.is_contiguous() and table.slots.is_contiguous()
+    tags = table.tags.numpy().astype(np.int64)
+    occupied = want[:, match_fast.TABLE_ID] >= 0
+    assert occupied.any() and (~occupied).any()
+    assert (tags[~occupied] == 0).all() and (tags[occupied] != 0).all()
+    k1 = want[:, match_fast.TABLE_K1].view(np.uint32)
+    np.testing.assert_array_equal(tags[occupied], _tag_reference(k1[occupied]))
+    slots = table.slots.numpy()
+    np.testing.assert_array_equal(slots[:, :5], want)
+    assert (slots[:, 5:] == 0).all()
+
+
+def _probe_case(name):
+    """(codepoints, cp_pad, window, wp, table, statics) of one text."""
+    cps = uni.decode_utf8(texts()[name].encode()).astype(np.int32)
+    index = build_index(parse_vocab(vocab_lines()))
+    cp_pad, window, wp = (torch.from_numpy(a) for a in features(cps, index.max_len))
+    return cps, cp_pad, window, wp, match_fast.pack_table(index, "cpu"), statics_of(index)
+
+
+def _tag_hits(name):
+    """Every probe of one text against the tags of the chain it walks: the
+    number of true hits, and of tag hits that are not true hits.  Asserts
+    that every true hit lies before the chain's first empty slot and
+    carries its probe's tag."""
+    cps, cp_pad, _, wp, table, st = _probe_case(name)
+    mask = (1 << st["log2_size"]) - 1
+    k1 = table.rows[:, match_fast.TABLE_K1].to(torch.int64) & 0xFFFFFFFF
+    k2 = table.rows[:, match_fast.TABLE_K2].to(torch.int64) & 0xFFFFFFFF
+    true_hits = false_hits = 0
+    for l, h1, h2, bucket, meta in match_fast.probe_keys(
+        cp_pad, wp, max_len=st["max_len"], log2_size=st["log2_size"],
+        mult1=st["mult1"], mult2=st["mult2"],
+    ):
+        tag = match_fast.tag_of(h1)
+        reached = torch.ones(wp.shape[0], dtype=torch.bool)
+        for p in range(st["max_probe"]):
+            slot = (bucket + p) & mask
+            rows = table.rows[slot]
+            true = ((k1[slot] == h1) & (k2[slot] == h2) & (rows[:, 2] == meta)
+                    & (rows[:, 4] == cp_pad[: wp.shape[0]]))
+            assert bool((reached[true]).all()), f"length {l}: a true hit behind an empty slot"
+            passed = table.tags[slot].to(torch.int64) == tag
+            assert bool(passed[true].all()), f"length {l}: a true hit fails its tag"
+            true_hits += int(true.sum())
+            false_hits += int((reached & passed & ~true).sum())
+            reached &= table.tags[slot] != 0
+    return cps, true_hits, false_hits
+
+
+@pytest.mark.parametrize("name", ["ascii", "multilingual", "astral", "unk_heavy", "punct_dense", "odd_n"])
+def test_true_hits_pass_the_tag_filter(name):
+    """No false negatives: every probe that truly matches a slot reaches it
+    by a chain walk over the tags (no tag 0 before it) and passes its
+    tag, astral text included."""
+    cps, true_hits, _ = _tag_hits(name)
+    assert true_hits > cps.shape[0] // 8
+
+
+def test_tag_filter_meets_tag_collisions():
+    """A tag is 8 bits: on these texts some tag hits are not true hits, so
+    the kernel's confirmation against the rows has work to do."""
+    assert sum(_tag_hits(name)[2] for name in texts()) > 0

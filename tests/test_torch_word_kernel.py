@@ -300,15 +300,25 @@ def test_dispatch_wrapper_cpu_mixed_dtypes_equals_plain():
     assert all((e != -2).any() for e in emits if e.shape[0])
 
 
-@pytest.mark.parametrize("cap_kind", ["ample", "overflow"])
-def test_compact_from_counts_cpu_equals_plain(cap_kind):
+def _cap_of(cap_kind: str, total: int) -> int:
+    return {"ample": total + 5, "exact": total, "overflow": total // 2}[cap_kind]
+
+
+@pytest.mark.parametrize("bucket_kind", ["mixed", "many_chunks"])
+@pytest.mark.parametrize("cap_kind", ["ample", "exact", "overflow"])
+def test_compact_from_counts_cpu_equals_plain(cap_kind, bucket_kind):
     """The compaction wrapper, given the counts in the vector, equals the
-    plain compaction on every defined entry, with and without overflow."""
+    plain compaction on every defined entry, with and without overflow,
+    also where a bucket spans many of the kernel's 64-unit chunks."""
     _, tables, _ = _setup()
-    emits = wk.word_match_commit_multi(_mixed_buckets(), tables)
+    cps = _mixed_buckets()
+    if bucket_kind == "many_chunks":
+        cps.append(torch.from_numpy(np.tile(cps[1].numpy(), (6, 1))))
+        assert cps[-1].shape[0] > 4 * wk.COMPACT_CHUNK
+    emits = wk.word_match_commit_multi(cps, tables)
     n = sum(int(e.shape[0]) for e in emits)
     total = sum(int((e != -2).sum()) for e in emits)
-    cap = total + 5 if cap_kind == "ample" else total // 2
+    cap = _cap_of(cap_kind, total)
     want = wk.compact_emits(emits, cap)
     fused = torch.full((1 + n + cap,), -9, dtype=torch.int32)
     fused[1 : 1 + n] = torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits])
@@ -319,7 +329,7 @@ def test_compact_from_counts_cpu_equals_plain(cap_kind):
     assert int(got[0]) == total
     assert torch.equal(got[:kept], want[:kept])
     decoded = wk.decode_compact(got.numpy(), [tuple(e.shape) for e in emits], cap)
-    if cap_kind == "ample":
+    if cap_kind != "overflow":
         for d, e in zip(decoded, emits):
             np.testing.assert_array_equal(d, e.numpy())
     else:

@@ -11,9 +11,10 @@
 // commit reads.  It also writes each unit's emit count.
 //
 // compact_kernel replaces the XLA epilogue of word_match_commit_compact
-// (word_kernel_pallas.py:349-358): from the per-unit counts and their
-// inclusive scan it writes (tid + 2) * 128 + position of every emit in
-// (bucket, unit, position) order, capped, and the total.
+// (word_kernel_pallas.py:349-358): from the per-unit counts it writes
+// (tid + 2) * 128 + position of every emit in (bucket, unit, position)
+// order, capped, and the total.  The scan of the counts lives in the same
+// launch (the design notes at the kernel).
 //
 // What bounds the match kernel on this card: the SM's instruction issue
 // and the latency of dependent shared- and global-memory reads, not device
@@ -60,8 +61,11 @@
 // count, one thread per unit over its visited positions; (4) every
 // position writes its emit value.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -71,6 +75,9 @@ constexpr int kBlock = kThreads * kGroups;
 constexpr int kLanes = 128;
 constexpr int kMaxBuckets = 8;
 constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kChunkUnits = 64;  // units of one chunk of the compaction: 8 a warp
+constexpr int kPrefetch = 16;  // emit cells a lane loads before the compaction's barrier
 constexpr uint32_t kLenMix = 0x9E3779B1u;
 constexpr uint32_t kKindMix = 0x85EBCA77u;
 constexpr uint32_t kSpaceToken = 9601u;  // U+2581
@@ -136,11 +143,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Named barrier of one 256-thread group (barrier 0 is __syncthreads').
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kThreads) : "memory");
-}
-
+// Waits until the barrier's phase `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);
   uint32_t done = 0;
@@ -158,7 +161,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // One bulk async copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global to shared memory, completing on `bar`.
+// aligned) from global to shared memory, completing on `bar`.  Called by
+// one thread; the block synchronises before any thread waits on `bar`.
 __device__ __forceinline__ void stage_async(void* dst, const void* src,
                                             uint32_t bytes, uint64_t* bar) {
   const uint32_t b = smem_addr(bar);
@@ -173,6 +177,11 @@ __device__ __forceinline__ void stage_async(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(b)
       : "memory");
+}
+
+// Named barrier of one 256-thread group (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kThreads) : "memory");
 }
 
 // The probe of one length: its keys, its fingerprint and its (length,
@@ -502,35 +511,202 @@ word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
   if (!staged) mbar_wait(&s_bar, 0);
 }
 
-// One thread per unit: its emits, at its exclusive offset, capped.
-__global__ void __launch_bounds__(kCompactThreads)
-compact_kernel(const Buckets d, const int* __restrict__ incl, long long n,
-               int cap, int* __restrict__ fused) {
-  const long long v = (long long)blockIdx.x * kCompactThreads + threadIdx.x;
-  if (v == 0) fused[0] = n ? incl[n - 1] : 0;
-  if (v >= n) return;
-  int b = 0;
-  while (v < d.unit_base[b] || v >= d.unit_base[b] + d.units[b]) ++b;
-  const int W = d.width[b];
-  const int* __restrict__ row = d.out[b] + (v - d.unit_base[b]) * W;
-  long long k = (long long)incl[v] - fused[1 + v];
-  int* __restrict__ dst = fused + 1 + n;
-  // The row's loads do not wait for the stores before them.
-#pragma unroll 8
-  for (int j = 0; j < W; ++j) {
-    const int e = row[j];
-    if (e != -2) {
-      if (k < cap) dst[k] = (e + 2) * 128 + j;
-      ++k;
+// Block-wide exclusive scan of v over kCompactThreads threads, and the
+// block's sums of v and of u, in one pass: returns this thread's exclusive
+// prefix of v.  Every thread of the block calls it.
+__device__ __forceinline__ int block_scan(int v, int u, int2* s_warp, int* total_v,
+                                          int* total_u) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v, y = u;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int xv = __shfl_up_sync(0xFFFFFFFFu, x, o), yv = __shfl_up_sync(0xFFFFFFFFu, y, o);
+    if (lane >= o) {
+      x += xv;
+      y += yv;
     }
+  }
+  if (lane == 31) s_warp[w] = make_int2(x, y);
+  __syncthreads();
+  if (w == 0) {
+    int2 t = lane < kCompactWarps ? s_warp[lane] : make_int2(0, 0);
+    for (int o = 1; o < kCompactWarps; o <<= 1) {
+      const int tx = __shfl_up_sync(0xFFFFFFFFu, t.x, o), ty = __shfl_up_sync(0xFFFFFFFFu, t.y, o);
+      if (lane >= o) {
+        t.x += tx;
+        t.y += ty;
+      }
+    }
+    if (lane < kCompactWarps) s_warp[lane] = t;  // inclusive sums of the warps
+  }
+  __syncthreads();
+  const int before = (w ? s_warp[w - 1].x : 0) + x - v;
+  *total_v = s_warp[kCompactWarps - 1].x;
+  *total_u = s_warp[kCompactWarps - 1].y;
+  __syncthreads();  // s_warp is reused by the next call
+  return before;
+}
+
+// A chunk of the compaction: up to kChunkUnits units of one bucket.
+// Chunks are numbered bucket by bucket, in caller order.
+struct Chunk {
+  int b;        // the bucket
+  long long u;  // its first unit, within the bucket
+  int len;      // units; 0 past the last chunk
+};
+
+__device__ __forceinline__ Chunk chunk_at(const Buckets& d, long long c) {
+  for (int b = 0; b < d.n; ++b) {
+    const long long in_bucket = (d.units[b] + kChunkUnits - 1) / kChunkUnits;
+    if (c < in_bucket) {
+      const long long u = c * kChunkUnits;
+      return {b, u, (int)min((long long)kChunkUnits, d.units[b] - u)};
+    }
+    c -= in_bucket;
+  }
+  return {0, 0, 0};
+}
+
+// Warp w's run of a chunk: units [ua, ub) of the chunk, whose emit rows
+// are `cells` consecutive ints of the bucket's emit matrix from `row`.
+struct Run {
+  int ua, ub, cells;
+  const int* row;
+};
+
+__device__ __forceinline__ Run run_of(const Buckets& d, const Chunk& k, int w) {
+  const int per = (k.len + kCompactWarps - 1) / kCompactWarps;
+  const int ua = min(w * per, k.len), ub = min(ua + per, k.len);
+  const int W = d.width[k.b];
+  return {ua, ub, (ub - ua) * W, d.out[k.b] + (k.u + ua) * W};
+}
+
+// The first kPrefetch * 32 cells of a run, one per lane and round.
+__device__ __forceinline__ void prefetch_run(const Run& r, int lane, int (&pre)[kPrefetch]) {
+#pragma unroll
+  for (int q = 0; q < kPrefetch; ++q) {
+    const int c = lane + 32 * q;
+    pre[q] = c < r.cells ? __ldg(r.row + c) : -2;
+  }
+}
+
+// Places a run's emits from `at` on: a ballot and a popcount give each
+// emit its place, so a warp's stores go out in order.  The first cells
+// come from `pre`, the rest from the emit matrix.  A run starts at a
+// unit's first column, so cell c is at position c % W, kept by steps.
+__device__ __forceinline__ void place_run(int W, const Run& r, int at,
+                                          const int (&pre)[kPrefetch], int cap,
+                                          int* __restrict__ dst, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  const int step = 32 % W;
+  int j = lane % W;
+  int c = lane;
+#pragma unroll
+  for (int q = 0; q < kPrefetch; ++q, c += 32) {
+    if (c - lane >= r.cells) return;
+    const int e = pre[q];
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, e != -2);
+    const int to = at + __popc(m & below);
+    if (e != -2 && to < cap) dst[to] = (e + 2) * 128 + j;
+    at += __popc(m);
+    j += step;
+    if (j >= W) j -= W;
+  }
+  for (; c - lane < r.cells; c += 32) {
+    const int e = c < r.cells ? r.row[c] : -2;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, e != -2);
+    const int to = at + __popc(m & below);
+    if (e != -2 && to < cap) dst[to] = (e + 2) * 128 + j;
+    at += __popc(m);
+    j += step;
+    if (j >= W) j -= W;
+  }
+}
+
+// The compaction, in one cooperative launch of at most the co-resident
+// blocks.  Block k owns chunks k, k + grid, ...  What bounds it: a
+// dispatch's ~0.5 MB of emits and counts is nothing to the card's memory,
+// so the launch, the scan across blocks and the latency of dependent
+// reads are the cost.  The design:
+//  - the scan lives in the launch: phase 1 sums each chunk's counts into
+//    chunk_sums (scratch the caller allocates for each call, so two calls
+//    on two streams share nothing and nothing needs zeroing); one
+//    grid-wide barrier; phase 2 takes each chunk's offset from the sums
+//    of the chunks before it.  The last chunk's block writes the total,
+//    fused[0];
+//  - a chunk lies in one bucket, resolved once per chunk for the block;
+//  - a block scans its first chunk's counts and loads that chunk's emit
+//    cells into registers (kPrefetch a lane) before the barrier;
+//  - each warp places a run of whole units: their emit rows are one
+//    contiguous run of cells, read with consecutive lanes on consecutive
+//    ints.  Entries at or past `cap` are dropped.
+__global__ void __launch_bounds__(kCompactThreads)
+compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
+               int* __restrict__ fused, int* __restrict__ chunk_sums) {
+  __shared__ int2 s_warp[kCompactWarps];
+  __shared__ int s_off[kChunkUnits];  // a chunk's exclusive scan
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int* counts = fused + 1;
+  int* __restrict__ dst = fused + 1 + n;
+  const long long grid = gridDim.x;
+  int total, none;
+
+  // The block's first chunk: its counts scanned and its emit cells loaded.
+  const long long c0 = blockIdx.x;
+  const Chunk k0 = chunk_at(d, c0);
+  const long long first0 = d.unit_base[k0.b] + k0.u;
+  int sum0, base0;
+  const int off = block_scan(t < k0.len ? counts[first0 + t] : 0, 0, s_warp, &sum0, &none);
+  if (t < kChunkUnits) s_off[t] = off;
+  const Run r0 = run_of(d, k0, w);
+  int pre[kPrefetch];
+  prefetch_run(r0, lane, pre);
+  // ---- phase 1: the chunk sums -------------------------------------------
+  if (t == 0 && k0.len) chunk_sums[c0] = sum0;
+  for (long long c = c0 + grid; c < n_chunks; c += grid) {
+    const Chunk k = chunk_at(d, c);
+    const long long first = d.unit_base[k.b] + k.u;
+    block_scan(t < k.len ? counts[first + t] : 0, 0, s_warp, &total, &none);
+    if (t == 0) chunk_sums[c] = total;
+  }
+  cooperative_groups::this_grid().sync();
+  if (n_chunks == 0) {
+    if (t == 0) fused[0] = 0;
+    return;
+  }
+  // ---- phase 2: the first chunk's offset, then its entries ---------------
+  int part = 0;
+  for (long long j = t; j < c0; j += kCompactThreads) part += __ldcg(chunk_sums + j);
+  block_scan(0, part, s_warp, &none, &base0);
+  long long base = base0;
+  if (c0 == n_chunks - 1 && t == 0) fused[0] = (int)(base + sum0);
+  if (r0.ua < r0.ub)
+    place_run(d.width[k0.b], r0, (int)(base + s_off[r0.ua]), pre, cap, dst, lane);
+  long long sum = sum0;
+  for (long long c = c0 + grid; c < n_chunks; c += grid) {
+    part = 0;  // the chunks from the previous one of this block to this one
+    for (long long j = c - grid + 1 + t; j < c; j += kCompactThreads)
+      part += __ldcg(chunk_sums + j);
+    const Chunk k = chunk_at(d, c);
+    const long long first = d.unit_base[k.b] + k.u;
+    int between;
+    const int o = block_scan(t < k.len ? counts[first + t] : 0, part, s_warp, &total, &between);
+    if (t < kChunkUnits) s_off[t] = o;
+    base += sum + between;
+    sum = total;
+    if (c == n_chunks - 1 && t == 0) fused[0] = (int)(base + sum);
+    __syncthreads();
+    const Run r = run_of(d, k, w);
+    prefetch_run(r, lane, pre);
+    if (r.ua < r.ub) place_run(d.width[k.b], r, (int)(base + s_off[r.ua]), pre, cap, dst, lane);
   }
 }
 
 // Fills `d` from the caller's bucket arrays (caller order); entries are
-// stored widest first.  `cps`/`elem` may be null (the compaction).
+// stored widest first if `widest_first`, else in caller order.
+// `cps`/`elem` may be null (the compaction).
 int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
                  const long long* units, const int* widths, void* const* outs,
-                 long long* total_units) {
+                 bool widest_first, long long* total_units) {
   if (n < 1 || n > kMaxBuckets) return cudaErrorInvalidValue;
   long long unit_base[kMaxBuckets];
   int order[kMaxBuckets];
@@ -543,7 +719,7 @@ int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
     unit_base[i] = acc;
     acc += units[i];
     int k = i;  // stable insertion, widest first
-    while (k > 0 && widths[order[k - 1]] < widths[i]) {
+    while (widest_first && k > 0 && widths[order[k - 1]] < widths[i]) {
       order[k] = order[k - 1];
       --k;
     }
@@ -593,7 +769,7 @@ extern "C" int wp_word_match_commit(
   *mode_out = -1;
   Buckets d;
   long long total = 0;
-  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, &total);
+  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, true, &total);
   if (rc != cudaSuccess) return rc;
   if (off_words % 4 || image_words % 4 || image_words < off_words || max_len < 0)
     return cudaErrorInvalidValue;
@@ -650,18 +826,38 @@ extern "C" int wp_word_match_commit(
 }
 
 // The compact vector int32[1 + n + cap] from the emit matrices: `fused[1 :
-// 1 + n]` already holds the per-unit counts (caller order), `incl` their
-// inclusive scan; writes fused[0] = total and the first `cap` entries.
+// 1 + n]` already holds the per-unit counts (caller order); writes
+// fused[0] = total and the first `cap` entries, in one cooperative launch.
+// `chunk_sums` is int32[scratch] for this call alone, one entry per chunk
+// of kChunkUnits units of a bucket.  fused is 16-byte aligned.
 extern "C" int wp_compact_emits(int n_buckets, void* const* emits, const long long* n_units,
-                                const int* widths, const void* incl, void* fused, int cap,
-                                void* stream) {
+                                const int* widths, void* fused, int cap, void* chunk_sums,
+                                int scratch, void* stream) {
   Buckets d;
-  long long total = 0;
-  int rc = fill_buckets(&d, n_buckets, nullptr, nullptr, n_units, widths, emits, &total);
+  long long n = 0;
+  int rc = fill_buckets(&d, n_buckets, nullptr, nullptr, n_units, widths, emits, false, &n);
   if (rc != cudaSuccess) return rc;
-  if (cap < 0) return cudaErrorInvalidValue;
-  const long long blocks = total ? (total + kCompactThreads - 1) / kCompactThreads : 1;
-  compact_kernel<<<(unsigned)blocks, kCompactThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const int*>(incl), total, cap, static_cast<int*>(fused));
+  long long n_chunks = 0;
+  for (int b = 0; b < d.n; ++b) n_chunks += (d.units[b] + kChunkUnits - 1) / kChunkUnits;
+  if (cap < 0 || scratch < n_chunks || reinterpret_cast<uintptr_t>(fused) % 16)
+    return cudaErrorInvalidValue;
+  int* out = static_cast<int*>(fused);
+  int* sums = static_cast<int*>(chunk_sums);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return rc;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact_kernel, kCompactThreads,
+                                                     0);
+  if (rc != cudaSuccess) return rc;
+  // Co-resident blocks only (a cooperative launch needs them), at most one
+  // per chunk.
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  blocks = std::max(1LL, std::min(blocks, n_chunks));
+  void* args[] = {&d, &n, &n_chunks, &cap, &out, &sums};
+  rc = cudaLaunchCooperativeKernel((const void*)compact_kernel, dim3((unsigned)blocks),
+                                   dim3(kCompactThreads), args, 0, s);
+  if (rc != cudaSuccess) return rc;
   return (int)cudaGetLastError();
 }

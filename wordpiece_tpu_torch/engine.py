@@ -53,7 +53,7 @@ def index_statics(index) -> dict:
 def encode_padded(
     cp_pad: torch.Tensor,  # int32[n + max_len]
     n_valid: int,
-    table: torch.Tensor,  # int32[S, 5]
+    table: match_fast.ProbeTable,
     *,
     max_len: int,
     max_probe: int,

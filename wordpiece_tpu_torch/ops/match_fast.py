@@ -11,7 +11,10 @@ Every text position probes every length 1..max_len:
 The table is built on the host (core/vocab.build_index: linear probing,
 no deletions, no two entries with one (k1, k2, len, kind), an exact
 probe-chain bound max_probe) and packed into int32[S, 5] rows {k1, k2,
-meta, id, first codepoint}.
+meta, id, first codepoint}.  `load_table` carries them to a device once
+as a ProbeTable in the CUDA kernel's layout: an 8-bit tag per slot (0
+empty, else `tag_of(k1)`) and the rows padded to 32 bytes, whose first
+five columns the plain version reads.
 
 `match_positions_plain` is the plain PyTorch version, with the JAX
 version's loops: every length, every one of max_probe slots, no early
@@ -20,10 +23,14 @@ wrapped to 32 bits with `& 0xFFFFFFFF` (ops/word_kernel._mul32 for the
 products) and the table's int32 words are compared in the same unsigned
 view.  `match_positions` runs it for CPU tensors; for CUDA tensors it
 launches the hand-written kernel csrc/match_fast.cu (ops/match_fast_cuda.py)
-or raises, and counts the launch in `match_positions.launches`.
+or raises, and counts the launch in `match_positions.launches` (and in
+`match_positions.launches_global` when the kernel read its tags from
+global memory).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -54,18 +61,57 @@ def pack_table_np(index) -> np.ndarray:
     )
 
 
-def load_table(table_np, device) -> torch.Tensor:
+TAG_MIX = 0x7FEB352D  # kTagMix of csrc/match_fast.cu
+
+
+def tag_of(k1: torch.Tensor) -> torch.Tensor:
+    """The 8-bit tag of k1 keys (int64 tensor of uint32 values), never 0:
+    the top byte of k1 * TAG_MIX on 32 bits, 1 where that byte is 0.  The
+    CUDA kernel computes the same tag from a probe's h1."""
+    t = _mul32(k1, TAG_MIX) >> 24
+    return torch.where(t == 0, 1, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeTable:
+    """The probe table on one device, in the CUDA kernel's layout.
+
+    tags:  uint8[S], 0 for an empty slot (id < 0), else tag_of(k1);
+    slots: int32[S, 8], {k1, k2, meta, id, first} then three zeros: one
+           32-byte row (one L2 sector) per slot."""
+
+    tags: torch.Tensor
+    slots: torch.Tensor
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """int32[S, 5], the JAX pack_table's rows (a view of `slots`), which
+        the plain version reads."""
+        return self.slots[:, :5]
+
+    @property
+    def device(self) -> torch.device:
+        return self.slots.device
+
+
+def load_table(table_np, device) -> ProbeTable:
     """A packed table as numpy (this module's pack_table_np, the JAX
     pack_table's output, or one partition of a ShardedVocabIndex.tables)
-    -> contiguous int32[S, 5] on `device`."""
+    -> a ProbeTable on `device`, its tags and 32-byte rows built on the
+    host and copied once."""
     table = np.array(table_np, dtype=np.int32, order="C")  # a copy the tensor owns
     if table.ndim != 2 or table.shape[1] != 5:
         raise ValueError(f"expected an int32[S, 5] table, got shape {table.shape}")
-    return torch.from_numpy(table).to(device)
+    rows = torch.from_numpy(table)
+    k1 = rows[:, TABLE_K1].to(torch.int64) & MASK32
+    tags = torch.where(rows[:, TABLE_ID] >= 0, tag_of(k1), 0).to(torch.uint8)
+    slots = torch.zeros((table.shape[0], 8), dtype=torch.int32)
+    slots[:, :5] = rows
+    return ProbeTable(tags.to(device), slots.to(device))
 
 
-def pack_table(index, device) -> torch.Tensor:
-    """VocabIndex -> int32[S, 5] table on `device`."""
+def pack_table(index, device) -> ProbeTable:
+    """VocabIndex -> ProbeTable on `device`."""
     return load_table(pack_table_np(index), device)
 
 
@@ -97,7 +143,7 @@ def match_positions_plain(
     cp_pad: torch.Tensor,  # int32[n + max_len] codepoints, zero pad
     window: torch.Tensor,  # int32[n]
     wp: torch.Tensor,  # bool[n] word-prefix flag => probe kind
-    table: torch.Tensor,  # int32[S, 5]
+    table: torch.Tensor,  # int32[S, 5], rows of any stride
     *,
     max_len: int,
     max_probe: int,
@@ -139,17 +185,21 @@ def match_positions(
     cp_pad: torch.Tensor,
     window: torch.Tensor,
     wp: torch.Tensor,
-    table: torch.Tensor,
+    table: ProbeTable,
     *,
     max_len: int,
     max_probe: int,
     log2_size: int,
     mult1: int,
     mult2: int,
+    global_tags: bool = False,
 ):
     """(best_id, best_len) int32[n]: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors (one launch, counted in
-    match_positions.launches); never a fallback from one to the other."""
+    match_positions.launches); never a fallback from one to the other.
+    The kernel stages the tags in shared memory where they fit;
+    `global_tags` forces it to read them from global memory (the smoke
+    test holds that layout against the plain version)."""
     statics = dict(
         max_len=max_len, max_probe=max_probe, log2_size=log2_size, mult1=mult1, mult2=mult2
     )
@@ -158,12 +208,16 @@ def match_positions(
         if t.device != dev:
             raise ValueError(f"table on {dev}, {name} on {t.device}")
     if dev.type == "cpu":
-        return match_positions_plain(cp_pad, window, wp, table, **statics)
+        return match_positions_plain(cp_pad, window, wp, table.rows, **statics)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    best_id, best_len, launched = launch(cp_pad, window, wp, table, **statics)
-    match_positions.launches += launched
+    best_id, best_len, mode = launch(cp_pad, window, wp, table, **statics,
+                                     global_tags=global_tags)
+    if mode >= 0:  # -1: n == 0, nothing launched
+        match_positions.launches += 1
+        match_positions.launches_global += mode
     return best_id, best_len
 
 
 match_positions.launches = 0
+match_positions.launches_global = 0

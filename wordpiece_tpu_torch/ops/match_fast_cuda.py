@@ -45,7 +45,8 @@ def build(*, force: bool = False):
             _P,  # cp_pad int32[n + max_len]
             _P,  # window int32[n]
             _P,  # wp bool[n]
-            _P,  # table int32[S, 5]
+            _P,  # tags uint8[S]
+            _P,  # slots int32[S, 8]
             ctypes.c_longlong,  # n
             ctypes.c_int,  # max_len
             ctypes.c_int,  # max_probe
@@ -54,6 +55,8 @@ def build(*, force: bool = False):
             ctypes.c_uint,  # mult2
             _P,  # best_id int32[n]
             _P,  # best_len int32[n]
+            ctypes.c_int,  # force the global-tag layout
+            ctypes.POINTER(ctypes.c_int),  # out: the layout launched (0 shared, 1 global, -1 none)
             _P,  # cudaStream_t
         ]
         _LIB = lib
@@ -67,34 +70,42 @@ def _check(name, t, dtype, shape):
         )
 
 
-def launch(cp_pad, window, wp, table, *, max_len, max_probe, log2_size, mult1, mult2):
+def launch(cp_pad, window, wp, table, *, max_len, max_probe, log2_size, mult1, mult2,
+           global_tags=False):
     """One launch of the kernel on the current stream of the tensors'
-    device.  Returns (best_id, best_len, launches): launches is 1, or 0
-    when n == 0 and nothing ran.  Raises on tensors the kernel does not
-    take and on a refused launch."""
+    device; `table` is an ops.match_fast.ProbeTable, whose tags and slots
+    the kernel reads.  Returns (best_id, best_len, mode): mode 0 (tags
+    staged in shared memory), 1 (tags read from global memory: the table
+    is too large for shared memory, or `global_tags`), or -1 when n == 0
+    and nothing ran.  Raises on tensors the kernel does not take and on a
+    refused launch."""
     n = int(window.shape[0])
-    dev = table.device
+    dev = table.tags.device
     _check("window", window, torch.int32, (n,))
     _check("wp", wp, torch.bool, (n,))
     _check("cp_pad", cp_pad, torch.int32, (n + max_len,))
-    if table.dim() != 2 or table.shape[1] != 5:
-        raise ValueError(f"table must be int32[S, 5], got {list(table.shape)}")
-    _check("table", table, torch.int32, (int(table.shape[0]), 5))
-    if int(table.shape[0]) != 1 << log2_size or not 1 <= log2_size <= 31:
-        raise ValueError(f"table has {table.shape[0]} rows, log2_size is {log2_size}")
+    if not 4 <= log2_size <= 30:
+        raise ValueError(f"log2_size {log2_size} outside the kernel's 4..30")
+    size = 1 << log2_size
+    _check("tags", table.tags, torch.uint8, (size,))
+    _check("slots", table.slots, torch.int32, (size, 8))
+    if table.tags.data_ptr() % 16 or table.slots.data_ptr() % 32:
+        raise ValueError("tags must be 16-byte and slots 32-byte aligned")
     if max_len < 0 or max_probe < 0:
         raise ValueError(f"max_len {max_len}, max_probe {max_probe}")
     best_id = torch.empty(n, dtype=torch.int32, device=dev)
     best_len = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return best_id, best_len, 0
+        return best_id, best_len, -1
     lib = build()
+    mode = ctypes.c_int(-1)
     with torch.cuda.device(dev):  # the C side launches on the current device
         rc = lib.wp_match_positions(
             cp_pad.data_ptr(),
             window.data_ptr(),
             wp.data_ptr(),
-            table.data_ptr(),
+            table.tags.data_ptr(),
+            table.slots.data_ptr(),
             n,
             max_len,
             max_probe,
@@ -103,8 +114,10 @@ def launch(cp_pad, window, wp, table, *, max_len, max_probe, log2_size, mult1, m
             mult2 & 0xFFFFFFFF,
             best_id.data_ptr(),
             best_len.data_ptr(),
+            int(global_tags),
+            ctypes.byref(mode),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"match_positions kernel launch failed: CUDA error {rc}")
-    return best_id, best_len, 1
+    return best_id, best_len, mode.value

@@ -101,9 +101,10 @@ def build(*, force: bool = False):
             _PP,  # emit matrices
             _PLL,  # units
             _PI,  # widths
-            _P,  # inclusive scan of the counts, int32[U_total]
             _P,  # the compact vector int32[1 + U_total + cap]
             ctypes.c_int,  # cap
+            _P,  # chunk sums, int32[scratch]: this call's scratch
+            ctypes.c_int,  # scratch
             _P,  # cudaStream_t
         ]
         _LIB = lib
@@ -236,12 +237,15 @@ def _check_position_field(w: int) -> None:
         raise ValueError(f"width {w}: positions must fit the 7-bit field")
 
 
+COMPACT_CHUNK = 64  # units of one chunk of the compaction kernel (kChunkUnits)
+
+
 def compact_from_counts(emits, fused: torch.Tensor, cap: int) -> torch.Tensor:
     """The compaction kernel: `fused` is the compact vector int32[1 + n +
     cap] whose counts segment fused[1 : 1 + n] already holds each unit's
-    emit count (the match kernel writes it).  One cumsum over the counts,
-    then one launch writes fused[0] (the total) and the capped entries.
-    Returns `fused`."""
+    emit count (the match kernel writes it).  One cooperative launch sums
+    the counts of each chunk, crosses one grid-wide barrier, then writes
+    fused[0] (the total) and the capped entries.  Returns `fused`."""
     emits = list(emits)
     units = [int(e.shape[0]) for e in emits]
     widths = [int(e.shape[1]) for e in emits]
@@ -260,18 +264,25 @@ def compact_from_counts(emits, fused: torch.Tensor, cap: int) -> torch.Tensor:
     for e in emits:
         if e.device != fused.device or e.dtype != torch.int32 or not e.is_contiguous():
             raise ValueError("emit matrices must be contiguous int32 on the vector's device")
-    incl = torch.cumsum(fused[1 : 1 + n], 0, dtype=torch.int32)
+    if fused.data_ptr() % 16:
+        raise ValueError("the compact vector must be 16-byte aligned")
+    # Scratch of this call alone, a sum per chunk: two calls on two
+    # streams share nothing.
+    chunks = max(1, sum(-(-u // COMPACT_CHUNK) for u in units))
+    chunk_sums = torch.empty(chunks, dtype=torch.int32, device=fused.device)
     lib = build()
-    rc = lib.wp_compact_emits(
-        len(emits),
-        _arrays(ctypes.c_void_p, [e.data_ptr() for e in emits]),
-        _arrays(ctypes.c_longlong, units),
-        _arrays(ctypes.c_int, widths),
-        incl.data_ptr(),
-        fused.data_ptr(),
-        cap,
-        torch.cuda.current_stream(fused.device).cuda_stream,
-    )
+    with torch.cuda.device(fused.device):  # the C side launches on the current device
+        rc = lib.wp_compact_emits(
+            len(emits),
+            _arrays(ctypes.c_void_p, [e.data_ptr() for e in emits]),
+            _arrays(ctypes.c_longlong, units),
+            _arrays(ctypes.c_int, widths),
+            fused.data_ptr(),
+            cap,
+            chunk_sums.data_ptr(),
+            chunks,
+            torch.cuda.current_stream(fused.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"compaction kernel launch failed: CUDA error {rc}")
     compact_from_counts.launches += 1
@@ -286,8 +297,8 @@ def word_match_commit_compact(
 ):
     """All buckets, then the compact vector (the counterpart of
     wordpiece_tpu's word_match_commit_compact): on the card one
-    match+commit launch that also writes the per-unit counts, one cumsum,
-    one compaction launch.  Returns (compact vector, emit matrices): the
+    match+commit launch that also writes the per-unit counts, then one
+    compaction launch.  Returns (compact vector, emit matrices): the
     emits stay on the device for the caller's full-emit fallback when the
     total exceeds `cap`."""
     cps = list(cps)

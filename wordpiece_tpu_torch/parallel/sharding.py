@@ -171,7 +171,7 @@ def _own_row(cp_shards: np.ndarray, lengths: np.ndarray, mesh: ProcessGrid, devi
 def encode_data_parallel(
     cp_shards: np.ndarray,  # int32[D, cap + max_len] (already tail-padded), same on every rank
     lengths: np.ndarray,  # int32[D]
-    table: torch.Tensor,  # int32[S, 5] on this rank's device (replicated)
+    table: match_fast.ProbeTable,  # on this rank's device (replicated)
     *,
     mesh: ProcessGrid,
     max_len: int,
@@ -198,7 +198,7 @@ def encode_data_parallel(
 def encode_2d_parallel(
     cp_shards: np.ndarray,  # int32[D, cap + max_len], same on every rank
     lengths: np.ndarray,  # int32[D]
-    table: torch.Tensor,  # int32[S, 5]: this rank's vocab partition, tables[mesh.v]
+    table: match_fast.ProbeTable,  # this rank's vocab partition: load_table(tables[mesh.v])
     *,
     mesh: ProcessGrid,
     max_len: int,
