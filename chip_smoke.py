@@ -88,7 +88,31 @@ JAX package.  Phases, each fatal on failure:
     the 10 MB en fast-stream rate (min
     and median of 5) with each part's time (host padding, H2D, features,
     match, commit, count and D2H), the peak of max_memory_allocated, and
-    one encode under torch.profiler (device time by op class, busy share).
+    one encode under torch.profiler (device time by op class, busy share);
+11. split kernels vs plain: the word kernel split in two for the
+    vocab-partitioned path.  The match kernel (word_match_multi: every
+    position's longest hit) equals the plain word_match, whole [U, W]
+    (best_id, best_len), in both key layouts, and the commit kernel
+    (word_commit_multi) equals the plain word_commit, emits and counts: on
+    phase 3's five matrices of each width 7/15/31/127 (one dispatch each,
+    whole bert-shaped table), and on phase 3's mixed dispatch (three
+    dtypes, an empty bucket, partial tiles) against the whole table and
+    every partition of shard_word_tables(..., 2) and (..., 3) and of a
+    tiny vocab whose partitions 1 and 2 of 3 hold no slot; the
+    max-combined partitions equal the whole table's matches, and their
+    commit equals the fused kernel's plain emits.  The split pipeline
+    (match on every partition, max-combine, commit, compact_from_counts)
+    equals the fused kernel and its compaction on the en first dispatch.
+    Then both kernels' times by CUDA events behind a spin kernel at the en
+    first dispatch's shapes, with the fused kernel's in the same call,
+    their plain versions' times and their bounds.  Integers: exactly 0;
+12. word sharded main paths, on a one-rank nccl group in this process:
+    the 1-D ShardedWordEncoder, the 1 x 1 2-D ShardedWordEncoder and
+    MultiHostWordEncoder each encode 10 MB en, equal to the native oracle,
+    each with every launch count set to 0 just before it: the 1-D and
+    multi-process paths launch the fused kernel and the compaction once
+    per dispatch and no split kernel; the 2-D path the match, the commit
+    and the compaction once per dispatch and no fused kernel.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -910,6 +934,320 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     }
 
 
+# ---- phases 11-12: the word kernel split in two, the word sharded paths ------
+# A vocabulary whose tables have one row per length, so partitions 1 and 2
+# of three hold no slot (tests/test_sharding.py:118's vocab).
+TINY_LINES = ["[UNK]", "a", "ab", "abc", "##a", "##ab", "b", "##b", "cd", "##cd", "x"]
+
+
+def exact_err(got, want, label: str) -> int:
+    """0 when the two integer tensors are equal, shape and all; raises
+    otherwise."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err or not torch.equal(got.to(want.dtype), want):
+        raise AssertionError(f"{label}: kernel != plain (max_abs_err {err})")
+    return err
+
+
+def plain_matches(cp, tabs):
+    """The plain word_match of one bucket against `tabs`, as int32."""
+    import torch
+
+    from wordpiece_tpu_torch.ops.word_kernel import word_match
+
+    kw = {k: v for k, v in tabs.statics.items() if k != "unk_id"}
+    bid, blen = word_match(cp, tabs.k1, tabs.k2, tabs.tid, width=int(cp.shape[1]), **kw)
+    return bid.to(torch.int32), blen.to(torch.int32)
+
+
+def plain_commit(cp, match, tabs):
+    from wordpiece_tpu_torch.ops.word_kernel import word_commit
+
+    return word_commit(cp, *match, width=int(cp.shape[1]), max_len=tabs.max_len,
+                       unk_id=tabs.unk_id)
+
+
+def max_combine(parts):
+    """The partitions' matches of one bucket max-combined in this process:
+    the arithmetic of vocab_parallel.combine_partial_matches over ranks."""
+    import torch
+
+    best_len = torch.stack([p[1] for p in parts]).max(dim=0).values
+    ids = torch.stack([torch.where(p[1] == best_len, p[0], -1) for p in parts])
+    return ids.max(dim=0).values, best_len
+
+
+def split_bytes_ops(cps, tables, matches) -> dict:
+    """Bytes and integer operations of the match and the commit kernels on
+    these inputs, counted as kernel_bytes_ops counts the fused kernel's.
+    Match: the units, the list offsets, every occupied slot's {k1, k2,
+    tid} and the salts read once, the two int32 matches per position
+    written once; ~12 operations per length and one compare per occupied
+    slot of the list it probes, for EVERY position and every length of its
+    window.  Commit: the units read once, the matches of the positions the
+    walk visits read once (8 bytes each: the kernel loads no other), the
+    emit matrices and the counts written once; one class test per position
+    and 4 operations per visited position (the load, the landing, the
+    rollback's test and the emit)."""
+    import torch
+
+    from wordpiece_tpu_torch.ops.word_kernel import _features, _widen, probe_keys, walk_visited
+
+    sizes = (tables.slot_off[1:] - tables.slot_off[:-1]).to(torch.int64)
+    kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
+    m_bytes = tables.slot_off.numel() * 4 + tables.n_slots * 12 + tables.lane_salts_t.numel() * 4
+    c_bytes = 0
+    lengths = probes = cells = visits = 0
+    for cp, (_, best_len) in zip(cps, matches):
+        u, w = cp.shape
+        unit_bytes = cp.numel() * cp.element_size()
+        wide = _widen(cp, w, tables.max_len)
+        pos, space, _, wp, window = _features(wide, w, tables.max_len)
+        for l, _, _, lane, in_window in probe_keys(wide, wp, window, width=w, **kw):
+            lengths += int(in_window.sum())
+            probes += int(torch.where(in_window, sizes[l * 128 + lane], 0).sum())
+        cells += u * w
+        visited = int(walk_visited(pos, space, wp, window, best_len.long()).sum())
+        visits += visited
+        m_bytes += unit_bytes + u * w * 8
+        c_bytes += unit_bytes + visited * 8 + u * w * 4 + u * 4
+    return {"match": (int(m_bytes), 12 * lengths + probes),
+            "commit": (int(c_bytes), cells + 4 * visits)}
+
+
+def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: list,
+                 cps_en: list, rng) -> dict:
+    """Phase 11 (module docstring).  `mixed` is phase 3's mixed-dtype
+    dispatch and `mixed_wants` its plain fused emits; `cps_en` the en first
+    dispatch's unit matrices on the card.  Returns the two kernels'
+    largest errors and their numbers at the en first dispatch."""
+    import torch
+
+    from wordpiece_tpu_torch.core.length_tables import build_length_tables, load_length_tables
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+    from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
+    from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
+    from wordpiece_tpu_torch.parallel.word_sharding import partition_tables
+
+    dev = cps_en[0].device
+    wm, wc, mc = wk.word_match_multi, wk.word_commit_multi, wk.word_match_commit_multi
+    whole = load_length_tables(host_tables, dev)
+    parts = {n: [load_length_tables(partition_tables(host_tables, n, v), dev) for v in range(n)]
+             for n in (2, 3)}
+    tiny = build_length_tables(parse_vocab(TINY_LINES))
+    tiny_whole = load_length_tables(tiny, dev)
+    tiny_parts = [load_length_tables(partition_tables(tiny, 3, v), dev) for v in range(3)]
+    empty = [v for v, t in enumerate(tiny_parts) if t.n_slots == 0]
+    if not empty:
+        raise AssertionError("no partition of the tiny vocab is empty")
+    max_err = {"match": 0, "commit": 0}
+
+    def check_match(cps, tabs, label):
+        """Both key layouts against the plain word_match, whole [U, W]
+        outputs.  Returns the plain matches."""
+        wants = [plain_matches(cp, tabs) for cp in cps]
+        for global_keys in (False, True):
+            before = (wm.launches, wm.launches_global)
+            got = wm(cps, tabs, global_keys=global_keys)
+            if (wm.launches, wm.launches_global) != (before[0] + 1, before[1] + int(global_keys)):
+                raise AssertionError(f"{label}: not one match launch in the expected layout")
+            torch.cuda.synchronize()
+            for (gi, gl), (wi, wl) in zip(got, wants):
+                max_err["match"] = max(max_err["match"], exact_err(gi, wi, f"{label} best_id"),
+                                       exact_err(gl, wl, f"{label} best_len"))
+        return wants
+
+    def check_commit(cps, matches, tabs, label, wants=None):
+        """The commit kernel on `matches` against the plain word_commit
+        (or `wants`), emits and counts.  Returns the emits and counts."""
+        if wants is None:
+            wants = [plain_commit(cp, m, tabs) for cp, m in zip(cps, matches)]
+        counts = torch.empty(sum(int(cp.shape[0]) for cp in cps), dtype=torch.int32, device=dev)
+        before = wc.launches
+        got = wc(cps, matches, max_len=tabs.max_len, unk_id=tabs.unk_id, counts=counts)
+        if wc.launches != before + 1:
+            raise AssertionError(f"{label}: not one commit launch")
+        torch.cuda.synchronize()
+        for g, w in zip(got, wants):
+            max_err["commit"] = max(max_err["commit"], exact_err(g, w, f"{label} emits"))
+        want_counts = torch.cat([(w != -2).sum(dim=1, dtype=torch.int32) for w in wants])
+        exact_err(counts, want_counts, f"{label} counts")
+        return got, counts
+
+    # Every width: the five phase-3 matrices as one dispatch, whole table.
+    for width in WIDTHS:
+        cps = [torch.from_numpy(_narrow(m)).to(dev) for m in unit_matrices(width, words, rng).values()]
+        matches = check_match(cps, whole, f"width {width}")
+        check_commit(cps, matches, whole, f"width {width}")
+        emit_json({"phase": "split_kernels_vs_plain", "tables": "whole", "width": width,
+                   "buckets": [list(c.shape) for c in cps], "max_abs_err": 0})
+
+    # The mixed dispatch (four widths, three dtypes, an empty bucket, partial
+    # tiles) on the whole table and on every partition of 2 and of 3: the
+    # max-combined partitions equal the whole table's matches, and the
+    # commit of the combined matches equals the fused kernel's plain emits.
+    whole_matches = check_match(mixed, whole, "mixed, whole")
+    check_commit(mixed, whole_matches, whole, "mixed, whole", wants=mixed_wants)
+    for n, tabs in parts.items():
+        per = [check_match(mixed, t, f"mixed, partition {v} of {n}") for v, t in enumerate(tabs)]
+        combined = [max_combine([p[b] for p in per]) for b in range(len(mixed))]
+        for b, (c, w) in enumerate(zip(combined, whole_matches)):
+            exact_err(c[0], w[0], f"partitions of {n}, bucket {b}: combined best_id")
+            exact_err(c[1], w[1], f"partitions of {n}, bucket {b}: combined best_len")
+        check_commit(mixed, combined, whole, f"mixed, {n} partitions combined", wants=mixed_wants)
+        emit_json({"phase": "split_kernels_vs_plain", "tables": f"{n}_partitions",
+                   "slots": [t.n_slots for t in tabs], "buckets": [list(c.shape) for c in mixed],
+                   "combined_equal_whole": True, "max_abs_err": 0})
+    tiny_per = [check_match(mixed, t, f"mixed, tiny partition {v}") for v, t in enumerate(tiny_parts)]
+    tiny_combined = [max_combine([p[b] for p in tiny_per]) for b in range(len(mixed))]
+    tiny_wants = [plain_emit_of(cp, tiny_whole) for cp in mixed]
+    check_commit(mixed, tiny_combined, tiny_whole, "mixed, tiny partitions", wants=tiny_wants)
+    emit_json({"phase": "split_kernels_vs_plain", "tables": "tiny_3_partitions",
+               "slots": [t.n_slots for t in tiny_parts], "empty_partitions": empty,
+               "max_abs_err": 0})
+
+    # The split pipeline on the en first dispatch: match on every partition,
+    # combine, commit, compact; equal to the fused kernel and its compaction.
+    n_units = sum(int(c.shape[0]) for c in cps_en)
+    cap = compact_cap(n_units)
+    fused_want, emits_want = wk.word_match_commit_compact(cps_en, whole, cap=cap)
+    for n, tabs in parts.items():
+        per = [wm(cps_en, t) for t in tabs]
+        combined = [max_combine([p[b] for p in per]) for b in range(len(cps_en))]
+        fused = torch.empty(1 + n_units + cap, dtype=torch.int32, device=dev)
+        emits = wc(cps_en, combined, max_len=whole.max_len, unk_id=whole.unk_id,
+                   counts=fused[1 : 1 + n_units])
+        wk.compact_from_counts(emits, fused, cap)
+        torch.cuda.synchronize()
+        for b, (e, w) in enumerate(zip(emits, emits_want)):
+            exact_err(e, w, f"en first dispatch, {n} partitions, bucket {b}")
+        total = int(fused_want[0])
+        exact_err(fused[: 1 + n_units + min(total, cap)], fused_want[: 1 + n_units + min(total, cap)],
+                  f"en first dispatch, {n} partitions: compact vector")
+        emit_json({"phase": "split_pipeline_vs_fused", "corpus": "en_10MB first dispatch",
+                   "partitions": n, "buckets": [list(c.shape) for c in cps_en], "total": total,
+                   "equal_fused": True})
+
+    # The en first dispatch against the whole table (the one partition of
+    # a 1 x 1 grid, what the 2-D main path feeds the kernels): whole
+    # outputs against the plain versions, then the numbers, with the fused
+    # kernel in the same call.
+    matches = check_match(cps_en, whole, "en first dispatch, whole")
+    _, counts = check_commit(cps_en, matches, whole, "en first dispatch, whole")
+    emit_json({"phase": "split_kernels_vs_plain", "tables": "whole",
+               "corpus": "en_10MB first dispatch", "buckets": [list(c.shape) for c in cps_en],
+               "max_abs_err": 0})
+    timing = {
+        "match": {"ms": device_ms(lambda: wm(cps_en, whole), 200),
+                  "ms_global_keys": device_ms(lambda: wm(cps_en, whole, global_keys=True), 200),
+                  "plain_ms": cuda_ms(lambda: [plain_matches(cp, whole) for cp in cps_en], 5)},
+        "commit": {"ms": device_ms(lambda: wc(cps_en, matches, max_len=whole.max_len,
+                                              unk_id=whole.unk_id, counts=counts), 200),
+                   "plain_ms": cuda_ms(lambda: [plain_commit(cp, m, whole)
+                                                for cp, m in zip(cps_en, matches)], 5)},
+        "fused_ms": device_ms(lambda: mc(cps_en, whole, counts=counts), 200),
+    }
+    for name, (nbytes, ops) in split_bytes_ops(cps_en, whole, matches).items():
+        b_ms, b_by = bound_ms(nbytes, ops)
+        timing[name].update(bytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by)
+        if not all(timing[name][k] > 0 for k in ("ms", "plain_ms", "bytes", "ops")):
+            raise AssertionError(f"{name}: a time or a bound term was not measured")
+    emit_json({"phase": "split_kernel_time", "corpus": "en_10MB",
+               "shapes": "first dispatch, every non-empty bucket", "card": card,
+               "buckets": [{"width": int(c.shape[1]), "units": int(c.shape[0]),
+                            "dtype": str(c.dtype)} for c in cps_en], **timing})
+    return {"max_err": max_err, "timing": timing}
+
+
+def plain_emit_of(cp, tabs):
+    from wordpiece_tpu_torch.ops.word_kernel import word_match_commit
+
+    return word_match_commit(cp, tabs.k1, tabs.k2, tabs.tid, width=int(cp.shape[1]), **tabs.statics)
+
+
+def word_sharded_phases(corpora: dict) -> dict:
+    """Phase 12 (module docstring): the three sharded word encoders on a
+    one-rank nccl group, each a main path of its own, with every launch
+    count set to 0 just before it and read just after.  Returns each
+    path's launches and dispatches."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
+    from wordpiece_tpu_torch.parallel.multihost import MultiHostWordEncoder
+    from wordpiece_tpu_torch.parallel.sharding import make_mesh
+    from wordpiece_tpu_torch.parallel.word_sharding import ShardedWordEncoder
+
+    counters = {"word_match_commit": wk.word_match_commit_multi,
+                "compact": wk.compact_from_counts, "word_match": wk.word_match_multi,
+                "word_commit": wk.word_commit_multi, "match_positions": mf.match_positions}
+    data, vocab, want = corpora["en"]
+    paths = {
+        "data_parallel_1d": (lambda: ShardedWordEncoder(vocab, device="cuda"),
+                             {"word_match_commit", "compact"}),
+        "grid_2d_1x1": (lambda: ShardedWordEncoder(vocab, mesh=make_mesh(1, 1), device="cuda"),
+                        {"word_match", "word_commit", "compact"}),
+        "multihost": (lambda: MultiHostWordEncoder(vocab, device="cuda"),
+                      {"word_match_commit", "compact"}),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120))
+        try:
+            for name, (make, launched) in paths.items():
+                enc = make()
+                inner = enc._inner
+                orig = inner._dispatch_buckets
+                dispatches = 0
+
+                def counted(mats):
+                    nonlocal dispatches
+                    dispatches += any(m.shape[0] for m in mats)
+                    return orig(mats)
+
+                inner._dispatch_buckets = counted
+                for c in counters.values():
+                    c.launches = 0
+                wk.word_match_commit_multi.launches_global = wk.word_match_multi.launches_global = 0
+                if name == "multihost":
+                    got, total = enc.encode_local_bytes(data)
+                else:
+                    got = enc.encode_bytes(data)
+                    total = int(got.shape[0])
+                launches = {k: c.launches for k, c in counters.items()}
+                launches_global = {"word_match_commit": wk.word_match_commit_multi.launches_global,
+                                   "word_match": wk.word_match_multi.launches_global}
+                ok = got.dtype == np.int32 and np.array_equal(got, want) and total == want.shape[0]
+                emit_json({"phase": "word_sharded", "path": name, "corpus": "en_10MB",
+                           "backend": dist.get_backend(), "world_size": 1,
+                           "device": str(inner.device), "ids": int(got.shape[0]), "total": total,
+                           "equal_native_oracle": bool(ok), "dispatches": dispatches,
+                           "launches": launches, "launches_global_keys": launches_global,
+                           "device_fallbacks": inner.device_fallbacks,
+                           "verify_repairs": inner.verify_repairs})
+                if not ok:
+                    raise AssertionError(f"{name}: ids differ from the native oracle")
+                if inner.verify_repairs or inner.device_fallbacks:
+                    raise AssertionError(f"{name}: {inner.verify_repairs} units repaired on the "
+                                         f"host, {inner.device_fallbacks} fetches rescued")
+                expected = {k: (dispatches if k in launched else 0) for k in counters}
+                if dispatches < 1 or launches != expected:
+                    raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+                out[name] = {"launches": launches, "launches_global": launches_global,
+                             "dispatches": dispatches}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -939,7 +1277,6 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.ops import match_fast_cuda as mfc
     from wordpiece_tpu_torch.ops.match_fast import match_positions as mp
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
-    from wordpiece_tpu_torch.ops.word_kernel import word_match_commit
     from wordpiece_tpu_torch.runtime import loader
     from wordpiece_tpu_torch.utils.profiling import StageStats
 
@@ -979,11 +1316,6 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(2024)
     mc = wk.word_match_commit_multi
     max_err = {"match": 0, "compact": 0}
-
-    def plain_emit(cp, tabs):
-        return word_match_commit(
-            cp, tabs.k1, tabs.k2, tabs.tid, width=int(cp.shape[1]), **tabs.statics
-        )
 
     def err_of(got, want) -> int:
         if got.shape != want.shape:
@@ -1030,7 +1362,7 @@ def main(argv=None) -> int:
         cps, wants = [], []
         for name, mat in mats.items():
             cp = torch.from_numpy(_narrow(mat)).to(dev)
-            want = plain_emit(cp, tables)
+            want = plain_emit_of(cp, tables)
             for global_keys in (False, True):
                 keys = "global" if global_keys else "shared"
                 check_dispatch([cp], [want], tables, global_keys, f"width {width}, {name}, {keys}")
@@ -1053,7 +1385,7 @@ def main(argv=None) -> int:
     dtypes = [str(m.dtype) for m in mixed]
     if len(set(dtypes[:3])) != 3:
         raise AssertionError(f"mixed dispatch without three dtypes: {dtypes}")
-    mixed_wants = [plain_emit(cp, tables) for cp in mixed]
+    mixed_wants = [plain_emit_of(cp, tables) for cp in mixed]
     for global_keys in (False, True):
         keys = "global" if global_keys else "shared"
         total = check_dispatch(mixed, mixed_wants, tables, global_keys, f"mixed dispatch, {keys}")
@@ -1197,7 +1529,7 @@ def main(argv=None) -> int:
         n = sum(u for u, _ in shapes)
         cap = compact_cap(n)
         # Held against the plain versions at exactly these shapes first.
-        wants = [plain_emit(cp, tabs) for cp in cps]
+        wants = [plain_emit_of(cp, tabs) for cp in cps]
         for global_keys in (False, True):
             total = check_dispatch(cps, wants, tabs, global_keys,
                                    f"{lang} first dispatch, {'global' if global_keys else 'shared'}")
@@ -1209,7 +1541,7 @@ def main(argv=None) -> int:
         k_ms = device_ms(lambda: mc(cps, tabs, counts=counts), 200)
         kg_ms = device_ms(lambda: mc(cps, tabs, counts=counts, global_keys=True), 200)
         c_ms = device_ms(lambda: wk.compact_from_counts(emits, fused, cap), 200)
-        kp_ms = cuda_ms(lambda: [plain_emit(cp, tabs) for cp in cps], 5)
+        kp_ms = cuda_ms(lambda: [plain_emit_of(cp, tabs) for cp in cps], 5)
         cp_ms = cuda_ms(lambda: wk.compact_emits(emits, cap), 50)
         # torch.masked_select sizes its output on the host, so each call
         # waits for the card: its time includes that round trip.
@@ -1497,6 +1829,12 @@ def main(argv=None) -> int:
     stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,
                                   np.random.default_rng(2026))
 
+    # ---- 11-12. the word kernel split in two; the word sharded paths -------
+    cps_en = [torch.from_numpy(_narrow(m)).to(dev) for m in captured["en"]]
+    split = split_phases(card, words, host_tables, mixed, mixed_wants, cps_en,
+                         np.random.default_rng(2027))
+    sharded = word_sharded_phases(corpora)
+
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]
     emit_json({"kernels": [
@@ -1529,6 +1867,26 @@ def main(argv=None) -> int:
             "library_ms": t_en["compact"]["library_ms"],
         },
         stream_kernel,
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": "wordpiece_tpu_torch/csrc/word_kernel.cu",
+            "replaces": replaces,
+            "layout": layout,
+            "launches": sharded["grid_2d_1x1"]["launches"][name],
+            "max_abs_err": split["max_err"][part],
+            "ms": split["timing"][part]["ms"],
+            "plain_ms": split["timing"][part]["plain_ms"],
+            "bound_ms": split["timing"][part]["bound_ms"],
+            "bound_by": split["timing"][part]["bound_by"],
+            "library_ms": None,
+        } for name, part, replaces, layout in (
+            ("word_match", "match", "wordpiece_tpu/ops/word_kernel.py:77",
+             f"{'global' if sharded['grid_2d_1x1']['launches_global']['word_match'] else 'shared'}"
+             " keys, every position"),
+            ("word_commit", "commit", "wordpiece_tpu/ops/word_kernel.py:148",
+             "walk over the combined matches"),
+        )),
     ]})
     print(card, flush=True)
     emit_json({"ok": True, "device": {"platform": "gpu", "kind": kind,

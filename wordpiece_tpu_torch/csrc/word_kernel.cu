@@ -60,6 +60,25 @@
 // (3) the walk with its probes, then the rollback and the unit's emit
 // count, one thread per unit over its visited positions; (4) every
 // position writes its emit value.
+//
+// word_match_kernel and word_commit_kernel are the same function split in
+// two, for a vocabulary partitioned over ranks (parallel/word_sharding.py
+// ::word_encode_2d_parallel): there the walk needs the matches of every
+// partition, which exist only after they are max-combined, so a probe
+// driven by the walk cannot serve.  They replace the XLA programs
+// wordpiece_tpu/ops/word_kernel.py::word_match and ::word_commit, and run
+// the tile loop below in two more modes:
+//  - match: phases (1) and (2), then every position (not only the visited
+//    ones) probes every length of its window against the given table or
+//    partition, one thread per position, and writes its longest hit
+//    (best_id, best_len), -1 and 0 where nothing hits;
+//  - commit: phases (1)-(4), with each visited position's probe replaced
+//    by a load of the combined (best_id, best_len); it writes the emit
+//    matrices and the counts, as the fused kernel does.
+// What bounds the match mode on this card: the same issue and dependent
+// reads as the fused kernel, times the positions the walk would have
+// skipped (the match probes W positions of a unit, the walk ~1.3); the
+// commit mode reads 8 bytes per visited position and probes nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -86,10 +105,17 @@ constexpr uint8_t kSpace = 1;
 constexpr uint8_t kPunct = 2;
 constexpr uint8_t kSpacing = 4;
 
+// What a launch of the tile loop computes.
+constexpr int kFused = 0;   // match+commit: emits and counts
+constexpr int kMatch = 1;   // every position's longest hit
+constexpr int kCommit = 2;  // emits and counts from given matches
+
 // The buckets of one dispatch, in tile order (widest first).
 struct Buckets {
   const void* cp[kMaxBuckets];    // unit matrix [units, width]
   int* out[kMaxBuckets];          // emit matrix int32[units, width]
+  int* ids[kMaxBuckets];          // best_id int32[units, width]: match writes, commit reads
+  int* lens[kMaxBuckets];         // best_len int32[units, width]: the same
   long long units[kMaxBuckets];
   long long unit_base[kMaxBuckets];  // first unit's index in the counts
   long long tile_end[kMaxBuckets];   // running sum of tiles, in tile order
@@ -253,6 +279,17 @@ __device__ __forceinline__ int confirm_list(const uint4* fps,
   return tid;
 }
 
+// The tid a length's fingerprint hits confirm, or -1: a single hit is
+// read directly, several are resolved by confirm_list.
+__device__ __forceinline__ int confirm_hits(const uint4* fps, const int4* __restrict__ slot_keys,
+                                            const ListProbe& p, const FpHits& hits) {
+  if (hits.n == 1) {
+    const int4 e = __ldg(slot_keys + hits.last);
+    return e.x == p.key1 && e.y == p.key2 ? e.z : -1;
+  }
+  return confirm_list(fps, slot_keys, p);
+}
+
 // A unit's bit masks over its positions: S <= 32 positions fit one word
 // (bits >= S are 0), a wider unit takes S / 32 words.  Bits >= W are
 // the pad columns, which read as space.
@@ -277,14 +314,24 @@ __device__ __forceinline__ int next_set(UnitBits m, int k) {
   return (w << 5) + __ffs(v) - 1;
 }
 
-template <bool kSharedKeys>
-__global__ void __launch_bounds__(kBlock, 1)
-word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
-                         int off_words, int image_bytes,
-                         const int4* __restrict__ slot_keys,
-                         const uint32_t* __restrict__ lane_salts, int max_len,
-                         uint32_t mult1, uint32_t mult2, int unk_id,
-                         int* __restrict__ counts) {
+// The probe window at p (src/fast.cpp:53-60): up to the first spacing char
+// strictly after p, capped at max_len and the unit end; 1 for punct.
+__device__ __forceinline__ int window_at(UnitBits m_spacing, UnitBits m_punct, int p, int W,
+                                         int max_len) {
+  if (bit_at(m_punct, p)) return 1;
+  return max(min(min(next_set(m_spacing, p + 1), W), p + max_len) - p, 1);
+}
+
+// The tile loop of all three kernels; kMode is kFused, kMatch or kCommit
+// (the notes at the top of this file).
+template <bool kSharedKeys, int kMode>
+__device__ __forceinline__ void run_tiles(const Buckets& d, const int* __restrict__ image,
+                                          int off_words, int image_bytes,
+                                          const int4* __restrict__ slot_keys,
+                                          const uint32_t* __restrict__ lane_salts, int max_len,
+                                          uint32_t mult1, uint32_t mult2, int unk_id,
+                                          int* __restrict__ counts) {
+  constexpr bool kProbes = kMode != kCommit;  // reads the length tables
   // Dynamic: the slot image (offsets, then fingerprints), in the shared
   // layout.
   extern __shared__ __align__(128) int s_image[];
@@ -303,7 +350,7 @@ word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
   __shared__ uint32_t s_salt[kThreads];  // lane salts | 1; lengths are <= W < 256
   __shared__ __align__(8) uint64_t s_bar;
 
-  if ((int)threadIdx.x < kThreads && (int)threadIdx.x <= max_len)
+  if (kProbes && (int)threadIdx.x < kThreads && (int)threadIdx.x <= max_len)
     s_salt[threadIdx.x] = __ldg(lane_salts + threadIdx.x) | 1u;
   if (kSharedKeys) {
     if (threadIdx.x == 0) stage_async(s_image, image, (uint32_t)image_bytes, &s_bar);
@@ -370,15 +417,6 @@ word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
     }
     group_sync(g);
 
-    // ---- the greedy walk, probing only the positions it visits ----------
-    // (ops/word_kernel.py:86-141 for the probe, :144-183 for the walk.)  The
-    // G = min(S, 32) lanes of a unit walk it together: at each visited
-    // position lane q scans the lists of lengths q + 1, q + 1 + G, ...
-    // within the window, the unit takes the longest length whose list holds
-    // the fingerprint, and its lane confirms the full keys in global
-    // memory; on a miss (a fingerprint collision) the next longest is
-    // tried, so the result is exact.  Positions the walk skips are never
-    // probed: the commit reads nothing of them.
     if (!staged) {
       mbar_wait(&s_bar, 0);
       staged = true;
@@ -387,128 +425,211 @@ word_match_commit_kernel(const Buckets d, const int* __restrict__ image,
     const UnitBits m_spacing = {s_spacing + mbase, n_words};
     const UnitBits m_punct = {s_punct + mbase, n_words};
     const UnitBits m_prefix = {s_prefix + mbase, n_words};
-    const int G = min(S, 32);
-    const unsigned umask = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
-    int n_vis = 0;
-    int p = 0;
-    bool walking = valid && j < G;
-    while (__any_sync(0xFFFFFFFFu, walking)) {
-      const uint32_t* ch = s_cp + gbase + p;
-      // The window (src/fast.cpp:53-60): up to the first spacing char
-      // strictly after p, capped at max_len and the unit end; 1 for punct.
-      int window = 1;
-      bool pre = false;
-      if (walking) {
-        pre = bit_at(m_prefix, p);
-        if (!bit_at(m_punct, p))
-          window = max(min(min(next_set(m_spacing, p + 1), W), p + max_len) - p, 1);
-      }
-      const int lmax = walking ? min(window, max_len) : 0;
-      const uint32_t kind_mix = pre ? kKindMix : 0u;
-      bool resolving = walking;  // uniform over a unit's lanes
-      int hit_l = 0, hit_tid = -1;
-      int below = lmax + 1;  // this lane rescans its lengths below this
-      int my_l = 0;          // this lane's longest fingerprint hit
-      ListProbe mine;
-      FpHits mine_hits;
-      while (__any_sync(0xFFFFFFFFu, resolving)) {
-        if (resolving && below > 0) {
-          my_l = 0;
-          uint32_t h1 = 0u, h2 = 0u;
-          int k = 0;
-          for (int l = j + 1; l < below; l += G) {
-            for (; k < l; ++k) {
-              h1 = h1 * mult1 + ch[k];
-              h2 = h2 * mult2 + ch[k];
-            }
-            const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
-            const FpHits hits = list_fp_hits(fps, pr);
-            if (hits.n) {
-              my_l = l;
-              mine = pr;
-              mine_hits = hits;
+
+    if constexpr (kMode == kMatch) {
+      // ---- every position's longest in-window hit (ops/word_kernel.py:
+      // 121-168): one thread per position, its lengths in order, each
+      // length's fingerprint hits confirmed against the full keys; the
+      // longest confirmed length wins.
+      if (live) {
+        const uint32_t* ch = s_cp + me;
+        const int lmax = min(window_at(m_spacing, m_punct, j, W, max_len), max_len);
+        const uint32_t kind_mix = bit_at(m_prefix, j) ? kKindMix : 0u;
+        uint32_t h1 = 0u, h2 = 0u;
+        int best_l = 0, best_id = -1;
+        for (int l = 1; l <= lmax; ++l) {
+          h1 = h1 * mult1 + ch[l - 1];
+          h2 = h2 * mult2 + ch[l - 1];
+          const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
+          const FpHits hits = list_fp_hits(fps, pr);
+          if (hits.n) {
+            const int tid = confirm_hits(fps, slot_keys, pr, hits);
+            if (tid >= 0) {
+              best_l = l;
+              best_id = tid;
             }
           }
-          below = 0;
         }
-        // The unit's longest candidate length; its lane confirms it.
-        int best_l = resolving ? my_l : 0;
-        for (int o = G >> 1; o > 0; o >>= 1)
-          best_l = max(best_l, __shfl_xor_sync(0xFFFFFFFFu, best_l, o));
-        const bool owner = resolving && best_l > 0 && my_l == best_l;
-        const unsigned owners = __ballot_sync(0xFFFFFFFFu, owner) & umask;
-        int tid = -1;
-        if (owner) {
-          if (mine_hits.n == 1) {
-            const int4 e = __ldg(slot_keys + mine_hits.last);
-            if (e.x == mine.key1 && e.y == mine.key2) tid = e.z;
-          } else {
-            tid = confirm_list(fps, slot_keys, mine);
+        d.ids[b][u * W + j] = best_id;
+        d.lens[b][u * W + j] = best_l;
+      }
+    } else {
+      // ---- the greedy walk, probing only the positions it visits --------
+      // (ops/word_kernel.py:86-141 for the probe, :144-183 for the walk.)
+      // The G = min(S, 32) lanes of a unit walk it together: at each
+      // visited position lane q scans the lists of lengths q + 1, q + 1 +
+      // G, ... within the window, the unit takes the longest length whose
+      // list holds the fingerprint, and its lane confirms the full keys in
+      // global memory; on a miss (a fingerprint collision) the next longest
+      // is tried, so the result is exact.  Positions the walk skips are
+      // never probed: the commit reads nothing of them.  The commit mode
+      // loads the given match of each visited position instead.
+      // The fused mode's statements keep the shape they had before the
+      // modes were added (umask, ch and pre computed here, the confirm
+      // written out below): hoisted into the probe branch, with
+      // confirm_hits, they cost the fused kernel 2 registers and 1-8% of
+      // its time at chip_smoke.py's first dispatches on an H100.
+      const int G = min(S, 32);
+      [[maybe_unused]] const unsigned umask =
+          G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
+      int n_vis = 0;
+      int p = 0;
+      bool walking = valid && j < G;
+      while (__any_sync(0xFFFFFFFFu, walking)) {
+        [[maybe_unused]] const uint32_t* ch = s_cp + gbase + p;
+        int window = 1;
+        [[maybe_unused]] bool pre = false;
+        if (walking) {
+          pre = bit_at(m_prefix, p);
+          window = window_at(m_spacing, m_punct, p, W, max_len);
+        }
+        int hit_l = 0, hit_tid = -1;
+        if constexpr (kMode == kCommit) {
+          if (walking) {
+            // ops/word_kernel.py::word_commit: matched iff best_len > 0,
+            // landing at most at the unit end.
+            const long long at = u * W + p;
+            hit_l = min(max(__ldg(d.lens[b] + at), 0), W);
+            hit_tid = __ldg(d.ids[b] + at);
+          }
+        } else {
+          const int lmax = walking ? min(window, max_len) : 0;
+          const uint32_t kind_mix = pre ? kKindMix : 0u;
+          bool resolving = walking;  // uniform over a unit's lanes
+          int below = lmax + 1;  // this lane rescans its lengths below this
+          int my_l = 0;          // this lane's longest fingerprint hit
+          ListProbe mine;
+          FpHits mine_hits;
+          while (__any_sync(0xFFFFFFFFu, resolving)) {
+            if (resolving && below > 0) {
+              my_l = 0;
+              uint32_t h1 = 0u, h2 = 0u;
+              int k = 0;
+              for (int l = j + 1; l < below; l += G) {
+                for (; k < l; ++k) {
+                  h1 = h1 * mult1 + ch[k];
+                  h2 = h2 * mult2 + ch[k];
+                }
+                const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
+                const FpHits hits = list_fp_hits(fps, pr);
+                if (hits.n) {
+                  my_l = l;
+                  mine = pr;
+                  mine_hits = hits;
+                }
+              }
+              below = 0;
+            }
+            // The unit's longest candidate length; its lane confirms it.
+            int best_l = resolving ? my_l : 0;
+            for (int o = G >> 1; o > 0; o >>= 1)
+              best_l = max(best_l, __shfl_xor_sync(0xFFFFFFFFu, best_l, o));
+            const bool owner = resolving && best_l > 0 && my_l == best_l;
+            const unsigned owners = __ballot_sync(0xFFFFFFFFu, owner) & umask;
+            int tid = -1;
+            if (owner) {
+              if (mine_hits.n == 1) {
+                const int4 e = __ldg(slot_keys + mine_hits.last);
+                if (e.x == mine.key1 && e.y == mine.key2) tid = e.z;
+              } else {
+                tid = confirm_list(fps, slot_keys, mine);
+              }
+            }
+            tid = __shfl_sync(0xFFFFFFFFu, tid, owners ? __ffs(owners) - 1 : lane);
+            if (resolving) {
+              if (best_l == 0) {
+                resolving = false;  // no list holds the fingerprint: no hit
+              } else if (tid >= 0) {
+                hit_l = best_l;
+                hit_tid = tid;
+                resolving = false;
+              } else if (owner) {
+                below = my_l;  // a fingerprint collision: look below it
+              }
+            }
           }
         }
-        tid = __shfl_sync(0xFFFFFFFFu, tid, owners ? __ffs(owners) - 1 : lane);
-        if (resolving) {
-          if (best_l == 0) {
-            resolving = false;  // no list holds the fingerprint: no hit
-          } else if (tid >= 0) {
-            hit_l = best_l;
-            hit_tid = tid;
-            resolving = false;
-          } else if (owner) {
-            below = my_l;  // a fingerprint collision: look below it
+        if (walking) {
+          if (j == 0) {
+            s_vpos[gbase + n_vis] = (uint8_t)p;
+            s_vlen[gbase + n_vis] = (uint8_t)hit_l;
+            s_vid[gbase + n_vis] = hit_tid;
+          }
+          ++n_vis;
+          // The next non-space at or after the landing (ops/word_kernel.py:
+          // 164-174); a fail lands on the next word prefix after its
+          // window.  Every step advances >= 1 position, so the walk ends at
+          // W.
+          const int land = hit_l > 0 ? min(p + hit_l, W)
+                                     : min(next_set(m_prefix, min(p + window, W)), W);
+          int q = land;
+          while (q < W && bit_at(m_space, q)) ++q;
+          p = q;
+          walking = p < W;
+        }
+      }
+
+      // ---- rollback + count over the visited positions, in reverse ------
+      // A visited fail kills every emission back to its segment start; the
+      // strict < keeps a fail that IS the next segment start in that later
+      // segment.  Empty (all-space) rows emit nothing.
+      if (valid && j == 0) {
+        const bool empty_row = bit_at(m_space, 0);
+        int n_emit = 0;
+        int next_fail = W + 1;  // first visited fail at or after k
+        int next_seg = W + 1;   // first segment start strictly after k
+        for (int i = n_vis - 1; i >= 0; --i) {
+          const int k = s_vpos[gbase + i];
+          const int ln = s_vlen[gbase + i];
+          if (ln == 0) next_fail = k;
+          const bool killed = next_fail < next_seg;
+          const bool seg_start = bit_at(m_prefix, k);
+          if (seg_start) next_seg = k;
+          if (!empty_row && ((ln > 0 && !killed) || (seg_start && killed))) {
+            s_out[gbase + k] = killed ? unk_id : s_vid[gbase + i];
+            ++n_emit;
           }
         }
+        counts[d.unit_base[b] + u] = n_emit;
       }
-      if (walking) {
-        if (j == 0) {
-          s_vpos[gbase + n_vis] = (uint8_t)p;
-          s_vlen[gbase + n_vis] = (uint8_t)hit_l;
-          s_vid[gbase + n_vis] = hit_tid;
-        }
-        ++n_vis;
-        // The next non-space at or after the landing (ops/word_kernel.py:
-        // 164-174); a fail lands on the next word prefix after its window.
-        // Every step advances >= 1 position, so the walk ends at W.
-        const int land = hit_l > 0 ? min(p + hit_l, W)
-                                   : min(next_set(m_prefix, min(p + window, W)), W);
-        int q = land;
-        while (q < W && bit_at(m_space, q)) ++q;
-        p = q;
-        walking = p < W;
-      }
-    }
+      group_sync(g);
 
-    // ---- rollback + count over the visited positions, in reverse --------
-    // A visited fail kills every emission back to its segment start; the
-    // strict < keeps a fail that IS the next segment start in that later
-    // segment.  Empty (all-space) rows emit nothing.
-    if (valid && j == 0) {
-      const bool empty_row = bit_at(m_space, 0);
-      int n_emit = 0;
-      int next_fail = W + 1;  // first visited fail at or after k
-      int next_seg = W + 1;   // first segment start strictly after k
-      for (int i = n_vis - 1; i >= 0; --i) {
-        const int k = s_vpos[gbase + i];
-        const int ln = s_vlen[gbase + i];
-        if (ln == 0) next_fail = k;
-        const bool killed = next_fail < next_seg;
-        const bool seg_start = bit_at(m_prefix, k);
-        if (seg_start) next_seg = k;
-        if (!empty_row && ((ln > 0 && !killed) || (seg_start && killed))) {
-          s_out[gbase + k] = killed ? unk_id : s_vid[gbase + i];
-          ++n_emit;
-        }
-      }
-      counts[d.unit_base[b] + u] = n_emit;
+      // ---- emit ---------------------------------------------------------
+      if (live) d.out[b][u * W + j] = s_out[me];
     }
-    group_sync(g);
-
-    // ---- emit -----------------------------------------------------------
-    if (live) d.out[b][u * W + j] = s_out[me];
     group_sync(g);  // the next tile reuses the group's scratch
   }
   // A block never exits with its bulk copy still in flight.
   if (!staged) mbar_wait(&s_bar, 0);
+}
+
+#define WORD_KERNEL_PARAMS                                                                   \
+  const Buckets d, const int* __restrict__ image, int off_words, int image_bytes,           \
+      const int4* __restrict__ slot_keys, const uint32_t* __restrict__ lane_salts,           \
+      int max_len, uint32_t mult1, uint32_t mult2, int unk_id, int* __restrict__ counts
+#define WORD_KERNEL_ARGS \
+  d, image, off_words, image_bytes, slot_keys, lane_salts, max_len, mult1, mult2, unk_id, counts
+
+template <bool kSharedKeys>
+__global__ void __launch_bounds__(kBlock, 1) word_match_commit_kernel(WORD_KERNEL_PARAMS) {
+  run_tiles<kSharedKeys, kFused>(WORD_KERNEL_ARGS);
+}
+
+template <bool kSharedKeys>
+__global__ void __launch_bounds__(kBlock, 1) word_match_kernel(WORD_KERNEL_PARAMS) {
+  run_tiles<kSharedKeys, kMatch>(WORD_KERNEL_ARGS);
+}
+
+__global__ void __launch_bounds__(kBlock, 1) word_commit_kernel(WORD_KERNEL_PARAMS) {
+  run_tiles<false, kCommit>(WORD_KERNEL_ARGS);
+}
+
+using WordKernel = void (*)(WORD_KERNEL_PARAMS);
+
+WordKernel word_kernel(int mode, bool shared_keys) {
+  if (mode == kMatch) return shared_keys ? word_match_kernel<true> : word_match_kernel<false>;
+  if (mode == kCommit) return word_commit_kernel;
+  return shared_keys ? word_match_commit_kernel<true> : word_match_commit_kernel<false>;
 }
 
 // Block-wide exclusive scan of v over kCompactThreads threads, and the
@@ -703,10 +824,12 @@ compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
 
 // Fills `d` from the caller's bucket arrays (caller order); entries are
 // stored widest first if `widest_first`, else in caller order.
-// `cps`/`elem` may be null (the compaction).
+// `cps`/`elem` may be null (the compaction), `ids`/`lens` (the match
+// matrices) are null but for the match and commit kernels.
 int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
                  const long long* units, const int* widths, void* const* outs,
-                 bool widest_first, long long* total_units) {
+                 bool widest_first, long long* total_units, void* const* ids = nullptr,
+                 void* const* lens = nullptr) {
   if (n < 1 || n > kMaxBuckets) return cudaErrorInvalidValue;
   long long unit_base[kMaxBuckets];
   int order[kMaxBuckets];
@@ -734,6 +857,8 @@ int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
     tiles += (units[i] + per_tile - 1) / per_tile;
     d->cp[k] = cps ? cps[i] : nullptr;
     d->out[k] = static_cast<int*>(outs[i]);
+    d->ids[k] = ids ? static_cast<int*>(ids[i]) : nullptr;
+    d->lens[k] = lens ? static_cast<int*>(lens[i]) : nullptr;
     d->units[k] = units[i];
     d->unit_base[k] = unit_base[i];
     d->tile_end[k] = tiles;
@@ -746,20 +871,80 @@ int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
   return cudaSuccess;
 }
 
+// Launches the tile loop in `mode` over the tiles of `d`, as many
+// persistent blocks as fit and no block without a tile.  The match modes
+// take the slot image in shared memory when it fits beside the kernel's
+// static shared memory and one block still fits on an SM, unless
+// force_global; the commit reads no table.  *mode_out is 0 (shared keys),
+// 1 (global keys or no keys) or -1 (no tiles: nothing launched).
+int launch_tiles(int mode, const Buckets& d, const void* image, int off_words, int image_words,
+                 const void* slot_keys, const void* lane_salts, int max_len, unsigned int mult1,
+                 unsigned int mult2, int unk_id, void* counts, int force_global, int* mode_out,
+                 void* stream) {
+  *mode_out = -1;
+  if (max_len < 0) return cudaErrorInvalidValue;
+  const bool probes = mode != kCommit;
+  if (probes && (off_words % 4 || image_words % 4 || image_words < off_words))
+    return cudaErrorInvalidValue;
+  const long long n_tiles = d.tile_end[d.n - 1];
+  if (n_tiles == 0) return cudaSuccess;
+
+  int rc, dev = 0, sms = 0, optin = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return rc;
+  if ((rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return rc;
+  const long long image_bytes = probes ? (long long)image_words * 4 : 0;
+  bool shared = false;
+  int per_sm = 0;
+  if (probes && !force_global) {
+    const WordKernel k = word_kernel(mode, true);
+    cudaFuncAttributes fa;
+    if ((rc = cudaFuncGetAttributes(&fa, k)) != cudaSuccess) return rc;
+    shared = image_bytes + (long long)fa.sharedSizeBytes <= optin;
+    if (shared) {
+      rc = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)image_bytes);
+      if (rc != cudaSuccess) return rc;
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kBlock, (size_t)image_bytes);
+      if (rc != cudaSuccess) return rc;
+      shared = per_sm > 0;
+    }
+  }
+  const WordKernel k = word_kernel(mode, shared);
+  if (!shared) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kBlock, 0);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (per_sm < 1) per_sm = 1;  // the launch itself then reports the failure
+  long long blocks = (long long)sms * per_sm;
+  if (blocks > n_tiles) blocks = n_tiles;
+
+  k<<<(unsigned)blocks, kBlock, shared ? (size_t)image_bytes : 0,
+      static_cast<cudaStream_t>(stream)>>>(
+      d, static_cast<const int*>(image), off_words, (int)image_bytes,
+      static_cast<const int4*>(slot_keys), static_cast<const uint32_t*>(lane_salts), max_len,
+      mult1, mult2, unk_id, static_cast<int*>(counts));
+  *mode_out = shared ? 0 : 1;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // arguments the kernel does not take.  Launches on `stream`, never
-// synchronises, allocates nothing.
+// synchronises, allocates nothing.  *mode_out as launch_tiles sets it.
+//
+// The table: `image` is int32[image_words]: the (max_len + 1) * 128 + 1
+// slot offsets, padded to off_words, then the slots' 16-bit k1
+// fingerprints, padded to 8-slot chunks; `slot_keys` is int4[slots] {k1,
+// k2, tid, 0}.  force_global != 0 reads the image from global memory even
+// when it fits in shared memory.
 
-// Match+commit of every bucket in one launch.  `image` is int32[image_words]:
-// the (max_len + 1) * 128 + 1 slot offsets, padded to off_words, then the
-// slots' 16-bit k1 fingerprints, padded to 8-slot chunks; `slot_keys` is
-// int4[slots] {k1, k2, tid, 0}.  `counts` receives each unit's emit count
-// (caller order).  force_global != 0 reads the image from global memory
-// even when it fits in shared memory.  *mode_out is 0 (shared keys), 1
-// (global keys) or -1 (no tiles: nothing launched).
+// Match+commit of every bucket in one launch.  `counts` receives each
+// unit's emit count (caller order).
 extern "C" int wp_word_match_commit(
     int n_buckets, const void* const* cps, const int* elem_bytes,
     const long long* n_units, const int* widths, void* const* outs,
@@ -771,58 +956,45 @@ extern "C" int wp_word_match_commit(
   long long total = 0;
   int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, true, &total);
   if (rc != cudaSuccess) return rc;
-  if (off_words % 4 || image_words % 4 || image_words < off_words || max_len < 0)
-    return cudaErrorInvalidValue;
-  const long long n_tiles = d.tile_end[d.n - 1];
-  if (n_tiles == 0) return cudaSuccess;
+  return launch_tiles(kFused, d, image, off_words, image_words, slot_keys, lane_salts, max_len,
+                      mult1, mult2, unk_id, counts, force_global, mode_out, stream);
+}
 
-  int dev = 0, sms = 0, optin = 0;
-  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
-  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return rc;
-  if ((rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-      cudaSuccess)
-    return rc;
-  cudaFuncAttributes fa;
-  if ((rc = cudaFuncGetAttributes(&fa, word_match_commit_kernel<true>)) != cudaSuccess) return rc;
-  const long long image_bytes = (long long)image_words * 4;
-  // The layout is chosen by size: shared keys when the image fits beside
-  // the kernel's static shared memory and one block still fits on an SM.
-  bool shared = !force_global && image_bytes + (long long)fa.sharedSizeBytes <= optin;
-  int per_sm = 0;
-  if (shared) {
-    rc = cudaFuncSetAttribute(word_match_commit_kernel<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)image_bytes);
-    if (rc != cudaSuccess) return rc;
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, word_match_commit_kernel<true>,
-                                                       kBlock, (size_t)image_bytes);
-    if (rc != cudaSuccess) return rc;
-    shared = per_sm > 0;
-  }
-  if (!shared) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, word_match_commit_kernel<false>,
-                                                       kBlock, 0);
-    if (rc != cudaSuccess) return rc;
-  }
-  if (per_sm < 1) per_sm = 1;  // the launch itself then reports the failure
-  // As many blocks as fit, but no block without a tile.
-  long long blocks = (long long)sms * per_sm;
-  if (blocks > n_tiles) blocks = n_tiles;
+// Every position's longest in-window hit, every bucket in one launch:
+// best_ids / best_lens are int32[units, width] per bucket (-1 / 0 where
+// nothing hits).
+extern "C" int wp_word_match(
+    int n_buckets, const void* const* cps, const int* elem_bytes,
+    const long long* n_units, const int* widths, void* const* best_ids, void* const* best_lens,
+    const void* image, int off_words, int image_words, const void* slot_keys,
+    const void* lane_salts, int max_len, unsigned int mult1, unsigned int mult2,
+    int force_global, int* mode_out, void* stream) {
+  *mode_out = -1;
+  Buckets d;
+  long long total = 0;
+  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, best_ids, true, &total,
+                        best_ids, best_lens);
+  if (rc != cudaSuccess) return rc;
+  return launch_tiles(kMatch, d, image, off_words, image_words, slot_keys, lane_salts, max_len,
+                      mult1, mult2, -1, nullptr, force_global, mode_out, stream);
+}
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* img = static_cast<const int*>(image);
-  const int4* kt = static_cast<const int4*>(slot_keys);
-  const uint32_t* ls = static_cast<const uint32_t*>(lane_salts);
-  int* cnt = static_cast<int*>(counts);
-  if (shared) {
-    word_match_commit_kernel<true><<<(unsigned)blocks, kBlock, (size_t)image_bytes, s>>>(
-        d, img, off_words, (int)image_bytes, kt, ls, max_len, mult1, mult2, unk_id, cnt);
-  } else {
-    word_match_commit_kernel<false><<<(unsigned)blocks, kBlock, 0, s>>>(
-        d, img, off_words, (int)image_bytes, kt, ls, max_len, mult1, mult2, unk_id, cnt);
-  }
-  *mode_out = shared ? 0 : 1;
-  return (int)cudaGetLastError();
+// The walk, rollback and emit of every bucket in one launch, from the
+// given (combined) matches best_ids / best_lens int32[units, width]:
+// writes the emit matrices `outs` and each unit's emit count to `counts`
+// (caller order).
+extern "C" int wp_word_commit(
+    int n_buckets, const void* const* cps, const int* elem_bytes,
+    const long long* n_units, const int* widths, void* const* best_ids, void* const* best_lens,
+    void* const* outs, int max_len, int unk_id, void* counts, int* mode_out, void* stream) {
+  *mode_out = -1;
+  Buckets d;
+  long long total = 0;
+  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, true, &total,
+                        best_ids, best_lens);
+  if (rc != cudaSuccess) return rc;
+  return launch_tiles(kCommit, d, nullptr, 0, 0, nullptr, nullptr, max_len, 0u, 0u, unk_id,
+                      counts, 1, mode_out, stream);
 }
 
 // The compact vector int32[1 + n + cap] from the emit matrices: `fused[1 :

@@ -268,8 +268,7 @@ class WordEncoder:
         cap = compact_cap(sum(u for u, _ in shapes))
         keep: list = []
         with self._on_stream():
-            cps = [self._to_device(_narrow(mats[b]), keep) for b in nonempty]
-            fused, emits = wk.word_match_commit_compact(cps, self.dtables, cap=cap)
+            fused, emits = self._device_step([mats[b] for b in nonempty], cap, keep)
             event = None
             if self._stream is not None:
                 host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=True)
@@ -279,6 +278,17 @@ class WordEncoder:
             else:
                 host = fused
         return ("async", host, event, emits, nonempty, shapes, len(mats), cap, keep)
+
+    def _device_step(self, mats: list[np.ndarray], cap: int, keep: list):
+        """The device work of one dispatch, enqueued on the encoder's
+        stream: the non-empty buckets' unit matrices -> (the compact
+        vector over their units, their emit matrices on the device).  The
+        sharded encoders (parallel/word_sharding.py) replace it; every
+        collective of their step is issued here, on the one thread that
+        prepares chunks (the pipeline's worker, or the caller's for a
+        one-chunk encode), so the ranks issue them in chunk order."""
+        cps = [self._to_device(_narrow(m), keep) for m in mats]
+        return wk.word_match_commit_compact(cps, self.dtables, cap=cap)
 
     def _fetch_buckets(self, handle):
         if handle[0] == "sync":

@@ -1,11 +1,17 @@
 """Wrappers of the hand-written CUDA kernels of the word engine.
 
-Two kernels live in csrc/word_kernel.cu:
+Four kernels live in csrc/word_kernel.cu:
   - the match+commit kernel, which replaces the TPU kernel
     wordpiece_tpu/ops/word_kernel_pallas.py::_kernel: one launch per
     dispatch covers every bucket (word_match_commit_multi);
   - the compaction kernel, which replaces the XLA epilogue of the JAX
-    package's word_match_commit_compact (compact_from_counts).
+    package's word_match_commit_compact (compact_from_counts);
+  - the same function split in two for a vocabulary partitioned over
+    ranks (parallel/word_sharding.py): the match kernel, every position's
+    longest hit against a table or partition (word_match_multi, replacing
+    the XLA program wordpiece_tpu/ops/word_kernel.py::word_match), and the
+    commit kernel, the walk, rollback and emit from given matches
+    (word_commit_multi, replacing ::word_commit).
 They are compiled with nvcc for sm_90a into one library with a plain C
 interface, at first use, into this package's build/ directory (ignored by
 git; ops/cuda_build.py), and loaded with ctypes.  Nothing here is compiled
@@ -18,7 +24,9 @@ stream, or raises; it never falls back.  Counts of launches:
 `word_match_commit_multi.launches` (all launches; one per dispatch),
 `word_match_commit_multi.launches_global` (those that read the slot
 image, the list offsets and key fingerprints, from global memory instead
-of staging it in shared memory) and `compact_from_counts.launches`.
+of staging it in shared memory), `compact_from_counts.launches`,
+`word_match_multi.launches` (and `.launches_global`) and
+`word_commit_multi.launches`.
 
 Layouts:
   - a bucket is a narrow unit matrix uint8/uint16/int32[U, W] (W = the
@@ -26,6 +34,8 @@ Layouts:
     one dispatch may differ in dtype;
   - the emit matrix is int32[U, W]: a token id per emitting position,
     -2 elsewhere;
+  - a bucket's matches are (best_id, best_len) int32[U, W]: the longest
+    in-window hit of every position, -1 and 0 where nothing hits;
   - the compact vector (word_match_commit_compact) is int32[1 + U_total
     + cap]: the total id count, the per-unit counts of every bucket in
     order, then (token_id + 2) * 128 + position for every emitted id in
@@ -44,7 +54,7 @@ import torch
 
 from ..core.length_tables import DeviceTables
 from .cuda_build import BUILD_DIR, CSRC_DIR, build_library
-from .word_kernel import word_match_commit
+from .word_kernel import word_commit, word_match, word_match_commit
 
 SOURCE = os.path.join(CSRC_DIR, "word_kernel.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libword_kernel.so")
@@ -92,6 +102,45 @@ def build(*, force: bool = False):
             _P,  # per-unit counts int32[U_total]
             ctypes.c_int,  # force the global-key layout
             _PI,  # out: the layout launched (0 shared, 1 global, -1 none)
+            _P,  # cudaStream_t
+        ]
+        fn = lib.wp_word_match
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int,  # n_buckets
+            _PP,  # unit matrices
+            _PI,  # bytes per codepoint, per bucket
+            _PLL,  # units, per bucket
+            _PI,  # widths
+            _PP,  # best_id matrices int32[U, W]
+            _PP,  # best_len matrices int32[U, W]
+            _P,  # slot image
+            ctypes.c_int,  # off_words
+            ctypes.c_int,  # image words
+            _P,  # slot keys
+            _P,  # lane_salts
+            ctypes.c_int,  # max_len
+            ctypes.c_uint,  # mult1
+            ctypes.c_uint,  # mult2
+            ctypes.c_int,  # force the global-key layout
+            _PI,  # out: the layout launched (0 shared, 1 global, -1 none)
+            _P,  # cudaStream_t
+        ]
+        fn = lib.wp_word_commit
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int,  # n_buckets
+            _PP,  # unit matrices
+            _PI,  # bytes per codepoint, per bucket
+            _PLL,  # units, per bucket
+            _PI,  # widths
+            _PP,  # best_id matrices int32[U, W] (the combined matches)
+            _PP,  # best_len matrices int32[U, W]
+            _PP,  # emit matrices int32[U, W]
+            ctypes.c_int,  # max_len
+            ctypes.c_int,  # unk_id
+            _P,  # per-unit counts int32[U_total]
+            _PI,  # out: -1 when nothing was launched
             _P,  # cudaStream_t
         ]
         fn = lib.wp_compact_emits
@@ -143,38 +192,17 @@ def word_match_commit_multi(
             )
             for cp in cps
         ]
-        if counts is not None and emits:
-            counts.copy_(torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits]))
+        _fill_counts(counts, emits)
         return emits
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not 1 <= len(cps) <= MAX_BUCKETS:
-        raise ValueError(f"{len(cps)} buckets: the kernel takes 1..{MAX_BUCKETS}")
-    for cp in cps:
-        if cp.dtype not in _CP_DTYPES:
-            raise TypeError(f"unit matrix dtype {cp.dtype} not in {_CP_DTYPES}")
-        if not cp.is_contiguous():
-            raise ValueError("unit matrix must be contiguous")
-        if not 1 <= cp.shape[1] <= 255:
-            raise ValueError(f"width {cp.shape[1]} outside the kernel's 1..255")
-    units = [int(cp.shape[0]) for cp in cps]
-    widths = [int(cp.shape[1]) for cp in cps]
+    units, widths = _check_units(cps, dev)
     outs = [torch.empty((u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
-    n = sum(units)
-    if counts is None:
-        counts = torch.empty(n, dtype=torch.int32, device=dev)
-    elif counts.shape != (n,) or counts.dtype != torch.int32 or counts.device != dev:
-        raise ValueError(f"counts must be int32[{n}] on {dev}")
-    if n == 0:
+    counts = _counts_for(counts, sum(units), dev)
+    if sum(units) == 0:
         return outs
     lib = build()
     mode = ctypes.c_int(-1)
     rc = lib.wp_word_match_commit(
-        len(cps),
-        _arrays(ctypes.c_void_p, [cp.data_ptr() for cp in cps]),
-        _arrays(ctypes.c_int, [cp.element_size() for cp in cps]),
-        _arrays(ctypes.c_longlong, units),
-        _arrays(ctypes.c_int, widths),
+        *_unit_args(cps, units, widths),
         _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
         tables.slot_image.data_ptr(),
         tables.off_words,
@@ -201,6 +229,158 @@ def word_match_commit_multi(
 
 word_match_commit_multi.launches = 0
 word_match_commit_multi.launches_global = 0
+
+
+def _check_units(cps, dev) -> tuple[list[int], list[int]]:
+    """Raises on unit matrices the kernels do not take; returns their
+    units and widths."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 1 <= len(cps) <= MAX_BUCKETS:
+        raise ValueError(f"{len(cps)} buckets: the kernel takes 1..{MAX_BUCKETS}")
+    for cp in cps:
+        if cp.dtype not in _CP_DTYPES:
+            raise TypeError(f"unit matrix dtype {cp.dtype} not in {_CP_DTYPES}")
+        if not cp.is_contiguous():
+            raise ValueError("unit matrix must be contiguous")
+        if not 1 <= cp.shape[1] <= 255:
+            raise ValueError(f"width {cp.shape[1]} outside the kernel's 1..255")
+    return [int(cp.shape[0]) for cp in cps], [int(cp.shape[1]) for cp in cps]
+
+
+def _counts_for(counts, n: int, dev) -> torch.Tensor:
+    if counts is None:
+        return torch.empty(n, dtype=torch.int32, device=dev)
+    if counts.shape != (n,) or counts.dtype != torch.int32 or counts.device != dev:
+        raise ValueError(f"counts must be int32[{n}] on {dev}")
+    return counts
+
+
+def _unit_args(cps, units, widths) -> tuple:
+    """The C entry points' first five arguments: the buckets' unit matrices."""
+    return (
+        len(cps),
+        _arrays(ctypes.c_void_p, [cp.data_ptr() for cp in cps]),
+        _arrays(ctypes.c_int, [cp.element_size() for cp in cps]),
+        _arrays(ctypes.c_longlong, units),
+        _arrays(ctypes.c_int, widths),
+    )
+
+
+def _fill_counts(counts, emits) -> None:
+    if counts is not None and emits:
+        counts.copy_(torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits]))
+
+
+def word_match_multi(cps, tables: DeviceTables, *, global_keys: bool = False) -> list[tuple]:
+    """Every bucket's matches (best_id, best_len), each int32[U, W], in ONE
+    kernel launch on the card: the longest in-window hit of every
+    position against `tables` (the whole table or one partition of
+    parallel/word_sharding.shard_word_tables).  `global_keys` as for
+    word_match_commit_multi."""
+    cps = list(cps)
+    dev = tables.packed.device
+    for cp in cps:
+        if cp.dim() != 2 or cp.device != dev:
+            raise ValueError(f"unit matrices must be 2-D on {dev}")
+    if dev.type == "cpu":
+        kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
+        out = []
+        for cp in cps:
+            bid, blen = word_match(cp, tables.k1, tables.k2, tables.tid, width=int(cp.shape[1]), **kw)
+            out.append((bid.to(torch.int32), blen.to(torch.int32)))
+        return out
+    units, widths = _check_units(cps, dev)
+    # One int32[2, U, W] per bucket: best_id in [0], best_len in [1].
+    outs = [torch.empty((2, u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
+    if sum(units) == 0:
+        return [(o[0], o[1]) for o in outs]
+    lib = build()
+    mode = ctypes.c_int(-1)
+    rc = lib.wp_word_match(
+        *_unit_args(cps, units, widths),
+        _arrays(ctypes.c_void_p, [o[0].data_ptr() for o in outs]),
+        _arrays(ctypes.c_void_p, [o[1].data_ptr() for o in outs]),
+        tables.slot_image.data_ptr(),
+        tables.off_words,
+        int(tables.slot_image.shape[0]),
+        tables.slot_keys.data_ptr(),
+        tables.lane_salts_t.data_ptr(),
+        tables.max_len,
+        tables.mult1 & 0xFFFFFFFF,
+        tables.mult2 & 0xFFFFFFFF,
+        int(global_keys),
+        ctypes.byref(mode),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"word_match kernel launch failed: CUDA error {rc}")
+    if mode.value >= 0:
+        word_match_multi.launches += 1
+        if mode.value == 1:
+            word_match_multi.launches_global += 1
+    return [(o[0], o[1]) for o in outs]
+
+
+word_match_multi.launches = 0
+word_match_multi.launches_global = 0
+
+
+def word_commit_multi(
+    cps, matches, *, max_len: int, unk_id: int, counts: torch.Tensor | None = None
+) -> list[torch.Tensor]:
+    """Every bucket's emit matrix int32[U, W] from its matches (best_id,
+    best_len), in ONE kernel launch on the card: the greedy walk, the
+    whole-word UNK rollback and the emit.  `matches` are typically the
+    max-combined matches of every vocab partition; `max_len` and `unk_id`
+    are the tables' statics.  `counts` as for word_match_commit_multi."""
+    cps = list(cps)
+    matches = list(matches)
+    if len(matches) != len(cps):
+        raise ValueError(f"{len(matches)} match pairs for {len(cps)} buckets")
+    dev = cps[0].device if cps else torch.device("cpu")
+    for cp, (bid, blen) in zip(cps, matches):
+        if cp.dim() != 2 or bid.shape != cp.shape or blen.shape != cp.shape:
+            raise ValueError("matches must have their unit matrix's [U, W] shape")
+        if bid.device != cp.device or blen.device != cp.device or cp.device != dev:
+            raise ValueError(f"unit matrices and matches must all be on {dev}")
+    if dev.type == "cpu":
+        emits = [
+            word_commit(cp, bid, blen, width=int(cp.shape[1]), max_len=max_len, unk_id=unk_id)
+            for cp, (bid, blen) in zip(cps, matches)
+        ]
+        _fill_counts(counts, emits)
+        return emits
+    units, widths = _check_units(cps, dev)
+    for bid, blen in matches:
+        for m in (bid, blen):
+            if m.dtype != torch.int32 or not m.is_contiguous():
+                raise ValueError("matches must be contiguous int32")
+    outs = [torch.empty((u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
+    counts = _counts_for(counts, sum(units), dev)
+    if sum(units) == 0:
+        return outs
+    lib = build()
+    mode = ctypes.c_int(-1)
+    rc = lib.wp_word_commit(
+        *_unit_args(cps, units, widths),
+        _arrays(ctypes.c_void_p, [bid.data_ptr() for bid, _ in matches]),
+        _arrays(ctypes.c_void_p, [blen.data_ptr() for _, blen in matches]),
+        _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        max_len,
+        unk_id,
+        counts.data_ptr(),
+        ctypes.byref(mode),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"word_commit kernel launch failed: CUDA error {rc}")
+    if mode.value >= 0:
+        word_commit_multi.launches += 1
+    return outs
+
+
+word_commit_multi.launches = 0
 
 
 def compact_emits(emits, cap: int) -> torch.Tensor:

@@ -45,7 +45,9 @@ class ProcessGrid:
     """A (data, vocab) grid of ranks: the port's counterpart of a JAX Mesh.
     d and v are this rank's coordinates (None on a rank outside the grid);
     data_group holds the ranks of this rank's column (same v, every d: the
-    "data" axis), vocab_group those of its row (same d, every v)."""
+    "data" axis), vocab_group those of its row (same d, every v).
+    axis_names is ("data",) for a 1-D grid (n_vocab == 1) and ("data",
+    "vocab") for a grid made with a vocab axis, of any length."""
 
     n_data: int
     n_vocab: int
@@ -54,13 +56,16 @@ class ProcessGrid:
     v: int | None
     data_group: object
     vocab_group: object
+    axis_names: tuple = ("data",)
 
 
-def make_mesh(n_data: int | None = None, n_vocab: int = 1, group=None) -> ProcessGrid:
+def make_mesh(n_data: int | None = None, n_vocab: int | None = None, group=None) -> ProcessGrid:
     """The first n_data * n_vocab ranks of `group` (default: the world) as a
-    (data, vocab) grid.  Every rank of the world must call it, with the
-    same arguments: it creates every subgroup, in the same order, on every
-    rank (dist.new_group's rule)."""
+    (data, vocab) grid; without n_vocab, a 1-D data grid.  Every rank of
+    the world must call it, with the same arguments: it creates every
+    subgroup, in the same order, on every rank (dist.new_group's rule)."""
+    axes = ("data",) if n_vocab is None else ("data", "vocab")
+    n_vocab = 1 if n_vocab is None else n_vocab
     if group is None:
         ranks = list(range(dist.get_world_size()))
     else:
@@ -78,9 +83,9 @@ def make_mesh(n_data: int | None = None, n_vocab: int = 1, group=None) -> Proces
     ]
     me = dist.get_rank()
     if me not in ranks:
-        return ProcessGrid(n_data, n_vocab, ranks, None, None, None, None)
+        return ProcessGrid(n_data, n_vocab, ranks, None, None, None, None, axes)
     d, v = divmod(ranks.index(me), n_vocab)
-    return ProcessGrid(n_data, n_vocab, ranks, d, v, data_groups[v], vocab_groups[d])
+    return ProcessGrid(n_data, n_vocab, ranks, d, v, data_groups[v], vocab_groups[d], axes)
 
 
 def rank_device(device) -> torch.device:
