@@ -8,10 +8,10 @@ nvcc and a C++ toolchain.  Imports torch and the port, never jax or the
 JAX package.  Phases, each fatal on failure:
 
  1. the card: name and power limit from nvidia-smi;
- 2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel and
-    the compaction kernel, one library) and csrc/match_fast.cu (the
-    fast-stream engine's probe), both at once; ptxas' registers, shared
-    memory and spills are printed;
+ 2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel, the
+    compaction kernel and the split match and commit kernels, one library)
+    and csrc/match_fast.cu (the fast-stream engine's probe), both at once;
+    ptxas' registers, shared memory and spills are printed;
  3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
     multilingual, astral-plane, UNK-heavy, empty rows; a row count that
     ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
@@ -90,20 +90,27 @@ JAX package.  Phases, each fatal on failure:
     match, commit, count and D2H), the peak of max_memory_allocated, and
     one encode under torch.profiler (device time by op class, busy share);
 11. split kernels vs plain: the word kernel split in two for the
-    vocab-partitioned path.  The match kernel (word_match_multi: every
-    position's longest hit) equals the plain word_match, whole [U, W]
-    (best_id, best_len), in both key layouts, and the commit kernel
-    (word_commit_multi) equals the plain word_commit, emits and counts: on
+    vocab-partitioned path.  The match kernel (word_match_packed: every
+    position's longest hit, one packed int32) equals the plain word_match,
+    packed, whole [U, W], in both key layouts, and the commit kernel
+    (word_commit_packed) equals the plain word_commit, emits and counts;
+    the pair wrappers (word_match_multi, word_commit_multi) once each: on
     phase 3's five matrices of each width 7/15/31/127 (one dispatch each,
     whole bert-shaped table), and on phase 3's mixed dispatch (three
     dtypes, an empty bucket, partial tiles) against the whole table and
     every partition of shard_word_tables(..., 2) and (..., 3) and of a
-    tiny vocab whose partitions 1 and 2 of 3 hold no slot; the
-    max-combined partitions equal the whole table's matches, and their
-    commit equals the fused kernel's plain emits.  The split pipeline
-    (match on every partition, max-combine, commit, compact_from_counts)
-    equals the fused kernel and its compaction on the en first dispatch.
-    Then both kernels' times by CUDA events behind a spin kernel at the en
+    tiny vocab whose partitions 1 and 2 of 3 hold no slot; the packed max
+    over the partitions equals the JAX two-pmax combine of their pairs and
+    the whole table's matches, and its commit equals the fused kernel's
+    plain emits.  Then fingerprint collisions: the plain count of those
+    the longest-first match meets on the en first dispatch with the bert
+    vocab, and a vocab with more (a search over random strings for keys
+    that share list, kind and fingerprint with queries longer than their
+    true hit), on which the match kernel equals the plain version.  The
+    split pipeline (match on every partition, max-combine, commit,
+    compact_from_counts) equals the fused kernel and its compaction on the
+    en first dispatch.  Then both kernels' times (the match in both key
+    layouts) by CUDA events behind a spin kernel at the en
     first dispatch's shapes, with the fused kernel's in the same call,
     their plain versions' times and their bounds.  Integers: exactly 0;
 12. word sharded main paths, on a one-rank nccl group in this process:
@@ -112,7 +119,10 @@ JAX package.  Phases, each fatal on failure:
     each with every launch count set to 0 just before it: the 1-D and
     multi-process paths launch the fused kernel and the compaction once
     per dispatch and no split kernel; the 2-D path the match, the commit
-    and the compaction once per dispatch and no fused kernel.
+    and the compaction once per dispatch and no fused kernel.  The
+    torch.distributed collectives are counted: one per 1-D dispatch (the
+    gather), two per 2-D dispatch (the packed matches' all_reduce and the
+    gather).
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -964,16 +974,24 @@ def plain_matches(cp, tabs):
     return bid.to(torch.int32), blen.to(torch.int32)
 
 
-def plain_commit(cp, match, tabs):
-    from wordpiece_tpu_torch.ops.word_kernel import word_commit
+def plain_packed(cp, tabs):
+    """The plain word_match of one bucket against `tabs`, packed."""
+    from wordpiece_tpu_torch.ops.word_kernel import pack_matches
 
-    return word_commit(cp, *match, width=int(cp.shape[1]), max_len=tabs.max_len,
+    return pack_matches(*plain_matches(cp, tabs), int(cp.shape[1]))
+
+
+def plain_commit(cp, packed, tabs):
+    from wordpiece_tpu_torch.ops.word_kernel import unpack_matches, word_commit
+
+    return word_commit(cp, *unpack_matches(packed), width=int(cp.shape[1]), max_len=tabs.max_len,
                        unk_id=tabs.unk_id)
 
 
 def max_combine(parts):
-    """The partitions' matches of one bucket max-combined in this process:
-    the arithmetic of vocab_parallel.combine_partial_matches over ranks."""
+    """The partitions' matches (best_id, best_len) of one bucket combined as
+    the JAX package combines them, with two pmax: the longest length, then
+    the largest id among the partitions that reach it."""
     import torch
 
     best_len = torch.stack([p[1] for p in parts]).max(dim=0).values
@@ -981,28 +999,30 @@ def max_combine(parts):
     return ids.max(dim=0).values, best_len
 
 
-def split_bytes_ops(cps, tables, matches) -> dict:
+def split_bytes_ops(cps, tables, packed) -> dict:
     """Bytes and integer operations of the match and the commit kernels on
     these inputs, counted as kernel_bytes_ops counts the fused kernel's.
     Match: the units, the list offsets, every occupied slot's {k1, k2,
-    tid} and the salts read once, the two int32 matches per position
+    tid} and the salts read once, one packed int32 match per position
     written once; ~12 operations per length and one compare per occupied
     slot of the list it probes, for EVERY position and every length of its
-    window.  Commit: the units read once, the matches of the positions the
-    walk visits read once (8 bytes each: the kernel loads no other), the
-    emit matrices and the counts written once; one class test per position
-    and 4 operations per visited position (the load, the landing, the
-    rollback's test and the emit)."""
+    window.  Commit: the units read once, the packed matches of the
+    positions the walk visits read once (4 bytes each: the kernel loads no
+    other), the emit matrices and the counts written once; one class test
+    per position and 4 operations per visited position (the load, the
+    landing, the rollback's test and the emit)."""
     import torch
 
-    from wordpiece_tpu_torch.ops.word_kernel import _features, _widen, probe_keys, walk_visited
+    from wordpiece_tpu_torch.ops.word_kernel import (
+        _features, _widen, probe_keys, unpack_matches, walk_visited,
+    )
 
     sizes = (tables.slot_off[1:] - tables.slot_off[:-1]).to(torch.int64)
     kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
     m_bytes = tables.slot_off.numel() * 4 + tables.n_slots * 12 + tables.lane_salts_t.numel() * 4
     c_bytes = 0
     lengths = probes = cells = visits = 0
-    for cp, (_, best_len) in zip(cps, matches):
+    for cp, m in zip(cps, packed):
         u, w = cp.shape
         unit_bytes = cp.numel() * cp.element_size()
         wide = _widen(cp, w, tables.max_len)
@@ -1011,30 +1031,33 @@ def split_bytes_ops(cps, tables, matches) -> dict:
             lengths += int(in_window.sum())
             probes += int(torch.where(in_window, sizes[l * 128 + lane], 0).sum())
         cells += u * w
-        visited = int(walk_visited(pos, space, wp, window, best_len.long()).sum())
+        best_len = unpack_matches(m)[1].long()
+        visited = int(walk_visited(pos, space, wp, window, best_len).sum())
         visits += visited
-        m_bytes += unit_bytes + u * w * 8
-        c_bytes += unit_bytes + visited * 8 + u * w * 4 + u * 4
+        m_bytes += unit_bytes + u * w * 4
+        c_bytes += unit_bytes + visited * 4 + u * w * 4 + u * 4
     return {"match": (int(m_bytes), 12 * lengths + probes),
             "commit": (int(c_bytes), cells + 4 * visits)}
 
 
-def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: list,
-                 cps_en: list, rng) -> dict:
+def split_phases(card: str, words: list, host_tables, bert_lines: list, mixed: list,
+                 mixed_wants: list, cps_en: list, rng) -> dict:
     """Phase 11 (module docstring).  `mixed` is phase 3's mixed-dtype
     dispatch and `mixed_wants` its plain fused emits; `cps_en` the en first
     dispatch's unit matrices on the card.  Returns the two kernels'
     largest errors and their numbers at the en first dispatch."""
     import torch
 
+    from wordpiece_tpu_torch.bench.collisions import collision_vocab, fp_collisions
     from wordpiece_tpu_torch.core.length_tables import build_length_tables, load_length_tables
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
+    from wordpiece_tpu_torch.ops.word_kernel import pack_matches, unpack_matches
     from wordpiece_tpu_torch.parallel.word_sharding import partition_tables
 
     dev = cps_en[0].device
-    wm, wc, mc = wk.word_match_multi, wk.word_commit_multi, wk.word_match_commit_multi
+    wm, wc, mc = wk.word_match_packed, wk.word_commit_packed, wk.word_match_commit_multi
     whole = load_length_tables(host_tables, dev)
     parts = {n: [load_length_tables(partition_tables(host_tables, n, v), dev) for v in range(n)]
              for n in (2, 3)}
@@ -1047,36 +1070,59 @@ def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: 
     max_err = {"match": 0, "commit": 0}
 
     def check_match(cps, tabs, label):
-        """Both key layouts against the plain word_match, whole [U, W]
-        outputs.  Returns the plain matches."""
-        wants = [plain_matches(cp, tabs) for cp in cps]
+        """The match kernel in both key layouts against the plain
+        word_match, packed, whole [U, W] outputs; the pair wrapper once
+        against the plain pairs.  Returns the plain packed matches."""
+        wants = [plain_packed(cp, tabs) for cp in cps]
         for global_keys in (False, True):
             before = (wm.launches, wm.launches_global)
             got = wm(cps, tabs, global_keys=global_keys)
             if (wm.launches, wm.launches_global) != (before[0] + 1, before[1] + int(global_keys)):
                 raise AssertionError(f"{label}: not one match launch in the expected layout")
             torch.cuda.synchronize()
-            for (gi, gl), (wi, wl) in zip(got, wants):
-                max_err["match"] = max(max_err["match"], exact_err(gi, wi, f"{label} best_id"),
-                                       exact_err(gl, wl, f"{label} best_len"))
+            for g, w in zip(got, wants):
+                max_err["match"] = max(max_err["match"], exact_err(g, w, f"{label} packed"))
+        for (gi, gl), w in zip(wk.word_match_multi(cps, tabs), wants):
+            wi, wl = unpack_matches(w)
+            exact_err(gi, wi, f"{label} best_id")
+            exact_err(gl, wl, f"{label} best_len")
         return wants
 
-    def check_commit(cps, matches, tabs, label, wants=None):
-        """The commit kernel on `matches` against the plain word_commit
-        (or `wants`), emits and counts.  Returns the emits and counts."""
+    def check_commit(cps, packed, tabs, label, wants=None):
+        """The commit kernel on `packed` against the plain word_commit (or
+        `wants`), emits and counts; the pair wrapper once.  Returns the
+        emits and counts."""
         if wants is None:
-            wants = [plain_commit(cp, m, tabs) for cp, m in zip(cps, matches)]
+            wants = [plain_commit(cp, m, tabs) for cp, m in zip(cps, packed)]
+        want_counts = torch.cat([(w != -2).sum(dim=1, dtype=torch.int32) for w in wants])
         counts = torch.empty(sum(int(cp.shape[0]) for cp in cps), dtype=torch.int32, device=dev)
         before = wc.launches
-        got = wc(cps, matches, max_len=tabs.max_len, unk_id=tabs.unk_id, counts=counts)
+        got = wc(cps, packed, max_len=tabs.max_len, unk_id=tabs.unk_id, counts=counts)
         if wc.launches != before + 1:
             raise AssertionError(f"{label}: not one commit launch")
         torch.cuda.synchronize()
         for g, w in zip(got, wants):
             max_err["commit"] = max(max_err["commit"], exact_err(g, w, f"{label} emits"))
-        want_counts = torch.cat([(w != -2).sum(dim=1, dtype=torch.int32) for w in wants])
         exact_err(counts, want_counts, f"{label} counts")
+        pairs = wk.word_commit_multi(cps, [unpack_matches(m) for m in packed],
+                                     max_len=tabs.max_len, unk_id=tabs.unk_id)
+        for g, w in zip(pairs, wants):
+            exact_err(g, w, f"{label} emits (pairs)")
         return got, counts
+
+    def combine(per):
+        """The partitions' packed matches of each bucket max-combined in
+        this process (the arithmetic of word_encode_2d_parallel's
+        all_reduce), held equal to the JAX package's two-pmax combine of
+        their pairs."""
+        out = []
+        for b, cp in enumerate(per[0]):
+            got = torch.stack([p[b] for p in per]).max(dim=0).values
+            jax_way = pack_matches(*max_combine([unpack_matches(p[b]) for p in per]),
+                                   int(cp.shape[1]))
+            exact_err(got, jax_way, f"bucket {b}: packed max != two-pmax combine")
+            out.append(got)
+        return out
 
     # Every width: the five phase-3 matrices as one dispatch, whole table.
     for width in WIDTHS:
@@ -1093,21 +1139,32 @@ def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: 
     whole_matches = check_match(mixed, whole, "mixed, whole")
     check_commit(mixed, whole_matches, whole, "mixed, whole", wants=mixed_wants)
     for n, tabs in parts.items():
-        per = [check_match(mixed, t, f"mixed, partition {v} of {n}") for v, t in enumerate(tabs)]
-        combined = [max_combine([p[b] for p in per]) for b in range(len(mixed))]
+        combined = combine([check_match(mixed, t, f"mixed, partition {v} of {n}")
+                            for v, t in enumerate(tabs)])
         for b, (c, w) in enumerate(zip(combined, whole_matches)):
-            exact_err(c[0], w[0], f"partitions of {n}, bucket {b}: combined best_id")
-            exact_err(c[1], w[1], f"partitions of {n}, bucket {b}: combined best_len")
+            exact_err(c, w, f"partitions of {n}, bucket {b}: combined matches")
         check_commit(mixed, combined, whole, f"mixed, {n} partitions combined", wants=mixed_wants)
         emit_json({"phase": "split_kernels_vs_plain", "tables": f"{n}_partitions",
                    "slots": [t.n_slots for t in tabs], "buckets": [list(c.shape) for c in mixed],
                    "combined_equal_whole": True, "max_abs_err": 0})
-    tiny_per = [check_match(mixed, t, f"mixed, tiny partition {v}") for v, t in enumerate(tiny_parts)]
-    tiny_combined = [max_combine([p[b] for p in tiny_per]) for b in range(len(mixed))]
+    tiny_combined = combine([check_match(mixed, t, f"mixed, tiny partition {v}")
+                             for v, t in enumerate(tiny_parts)])
     tiny_wants = [plain_emit_of(cp, tiny_whole) for cp in mixed]
     check_commit(mixed, tiny_combined, tiny_whole, "mixed, tiny partitions", wants=tiny_wants)
     emit_json({"phase": "split_kernels_vs_plain", "tables": "tiny_3_partitions",
                "slots": [t.n_slots for t in tiny_parts], "empty_partitions": empty,
+               "max_abs_err": 0})
+
+    # Fingerprint collisions: the bert vocab's own at the en first dispatch,
+    # then a vocabulary with more, found by a search over random strings;
+    # the longest-first match falls back past each.
+    real = fp_collisions(cps_en, whole)
+    lines_c, tabs_c, found = collision_vocab(bert_lines, cps_en, rng)
+    check_match(cps_en, tabs_c, "en first dispatch, collision vocab")
+    emit_json({"phase": "split_collisions", "corpus": "en_10MB first dispatch",
+               "bert_vocab": {"pairs": real[0], "positions": real[1]},
+               "collision_vocab": {"tokens_added": len(lines_c) - len(bert_lines),
+                                   "pairs": found[0], "positions": found[1]},
                "max_abs_err": 0})
 
     # The split pipeline on the en first dispatch: match on every partition,
@@ -1116,8 +1173,8 @@ def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: 
     cap = compact_cap(n_units)
     fused_want, emits_want = wk.word_match_commit_compact(cps_en, whole, cap=cap)
     for n, tabs in parts.items():
-        per = [wm(cps_en, t) for t in tabs]
-        combined = [max_combine([p[b] for p in per]) for b in range(len(cps_en))]
+        combined = [torch.stack(ms).max(dim=0).values
+                    for ms in zip(*[wm(cps_en, t) for t in tabs])]
         fused = torch.empty(1 + n_units + cap, dtype=torch.int32, device=dev)
         emits = wc(cps_en, combined, max_len=whole.max_len, unk_id=whole.unk_id,
                    counts=fused[1 : 1 + n_units])
@@ -1143,8 +1200,8 @@ def split_phases(card: str, words: list, host_tables, mixed: list, mixed_wants: 
                "max_abs_err": 0})
     timing = {
         "match": {"ms": device_ms(lambda: wm(cps_en, whole), 200),
-                  "ms_global_keys": device_ms(lambda: wm(cps_en, whole, global_keys=True), 200),
-                  "plain_ms": cuda_ms(lambda: [plain_matches(cp, whole) for cp in cps_en], 5)},
+                  "global_keys_ms": device_ms(lambda: wm(cps_en, whole, global_keys=True), 200),
+                  "plain_ms": cuda_ms(lambda: [plain_packed(cp, whole) for cp in cps_en], 5)},
         "commit": {"ms": device_ms(lambda: wc(cps_en, matches, max_len=whole.max_len,
                                               unk_id=whole.unk_id, counts=counts), 200),
                    "plain_ms": cuda_ms(lambda: [plain_commit(cp, m, whole)
@@ -1186,23 +1243,38 @@ def word_sharded_phases(corpora: dict) -> dict:
     from wordpiece_tpu_torch.parallel.word_sharding import ShardedWordEncoder
 
     counters = {"word_match_commit": wk.word_match_commit_multi,
-                "compact": wk.compact_from_counts, "word_match": wk.word_match_multi,
-                "word_commit": wk.word_commit_multi, "match_positions": mf.match_positions}
+                "compact": wk.compact_from_counts, "word_match": wk.word_match_packed,
+                "word_commit": wk.word_commit_packed, "match_positions": mf.match_positions}
     data, vocab, want = corpora["en"]
+    # Each path: its encoder, the kernels it launches once per dispatch,
+    # and the collectives it issues per dispatch (None: per encode).
     paths = {
         "data_parallel_1d": (lambda: ShardedWordEncoder(vocab, device="cuda"),
-                             {"word_match_commit", "compact"}),
+                             {"word_match_commit", "compact"}, 1),
         "grid_2d_1x1": (lambda: ShardedWordEncoder(vocab, mesh=make_mesh(1, 1), device="cuda"),
-                        {"word_match", "word_commit", "compact"}),
+                        {"word_match", "word_commit", "compact"}, 2),
         "multihost": (lambda: MultiHostWordEncoder(vocab, device="cuda"),
-                      {"word_match_commit", "compact"}),
+                      {"word_match_commit", "compact"}, None),
     }
+    collectives = {}  # torch.distributed function name -> calls
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            collectives[name] = collectives.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    wrapped = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
+               "reduce_scatter", "reduce_scatter_tensor", "all_to_all", "barrier")
+    originals = {name: getattr(dist, name) for name in wrapped}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
                                 timeout=timedelta(seconds=120))
         try:
-            for name, (make, launched) in paths.items():
+            for name in wrapped:
+                setattr(dist, name, counting(name, originals[name]))
+            for name, (make, launched, per_dispatch) in paths.items():
                 enc = make()
                 inner = enc._inner
                 orig = inner._dispatch_buckets
@@ -1216,7 +1288,8 @@ def word_sharded_phases(corpora: dict) -> dict:
                 inner._dispatch_buckets = counted
                 for c in counters.values():
                     c.launches = 0
-                wk.word_match_commit_multi.launches_global = wk.word_match_multi.launches_global = 0
+                wk.word_match_commit_multi.launches_global = wk.word_match_packed.launches_global = 0
+                collectives.clear()
                 if name == "multihost":
                     got, total = enc.encode_local_bytes(data)
                 else:
@@ -1224,14 +1297,15 @@ def word_sharded_phases(corpora: dict) -> dict:
                     total = int(got.shape[0])
                 launches = {k: c.launches for k, c in counters.items()}
                 launches_global = {"word_match_commit": wk.word_match_commit_multi.launches_global,
-                                   "word_match": wk.word_match_multi.launches_global}
+                                   "word_match": wk.word_match_packed.launches_global}
+                issued = dict(collectives)
                 ok = got.dtype == np.int32 and np.array_equal(got, want) and total == want.shape[0]
                 emit_json({"phase": "word_sharded", "path": name, "corpus": "en_10MB",
                            "backend": dist.get_backend(), "world_size": 1,
                            "device": str(inner.device), "ids": int(got.shape[0]), "total": total,
                            "equal_native_oracle": bool(ok), "dispatches": dispatches,
                            "launches": launches, "launches_global_keys": launches_global,
-                           "device_fallbacks": inner.device_fallbacks,
+                           "collectives": issued, "device_fallbacks": inner.device_fallbacks,
                            "verify_repairs": inner.verify_repairs})
                 if not ok:
                     raise AssertionError(f"{name}: ids differ from the native oracle")
@@ -1241,9 +1315,14 @@ def word_sharded_phases(corpora: dict) -> dict:
                 expected = {k: (dispatches if k in launched else 0) for k in counters}
                 if dispatches < 1 or launches != expected:
                     raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+                if per_dispatch is not None and sum(issued.values()) != per_dispatch * dispatches:
+                    raise AssertionError(f"{name}: collectives {issued} in {dispatches} dispatches, "
+                                         f"expected {per_dispatch} per dispatch")
                 out[name] = {"launches": launches, "launches_global": launches_global,
-                             "dispatches": dispatches}
+                             "dispatches": dispatches, "collectives": issued}
         finally:
+            for name in wrapped:
+                setattr(dist, name, originals[name])
             dist.destroy_process_group()
     return out
 
@@ -1831,7 +1910,7 @@ def main(argv=None) -> int:
 
     # ---- 11-12. the word kernel split in two; the word sharded paths -------
     cps_en = [torch.from_numpy(_narrow(m)).to(dev) for m in captured["en"]]
-    split = split_phases(card, words, host_tables, mixed, mixed_wants, cps_en,
+    split = split_phases(card, words, host_tables, bert_lines_en, mixed, mixed_wants, cps_en,
                          np.random.default_rng(2027))
     sharded = word_sharded_phases(corpora)
 
@@ -1883,9 +1962,9 @@ def main(argv=None) -> int:
         } for name, part, replaces, layout in (
             ("word_match", "match", "wordpiece_tpu/ops/word_kernel.py:77",
              f"{'global' if sharded['grid_2d_1x1']['launches_global']['word_match'] else 'shared'}"
-             " keys, every position"),
+             " keys, every position, longest first, one position a lane, dense tiles, packed out"),
             ("word_commit", "commit", "wordpiece_tpu/ops/word_kernel.py:148",
-             "walk over the combined matches"),
+             "walk over packed matches in shared memory, 128-position tiles"),
         )),
     ]})
     print(card, flush=True)

@@ -465,7 +465,7 @@ def test_split_wrappers_check_their_inputs():
         wk.word_commit_multi([cp, cp], [(bid, blen)], max_len=tabs.max_len, unk_id=0)
     emit, = wk.word_commit_multi([cp], [(bid, blen)], max_len=tabs.max_len, unk_id=0)
     assert (emit == -2).all()  # all-space rows emit nothing
-    assert (wk.word_match_multi.launches, wk.word_commit_multi.launches) == (0, 0)
+    assert (wk.word_match_packed.launches, wk.word_commit_packed.launches) == (0, 0)
 
 
 @pytest.mark.parametrize("n_procs", [1, 2, 3, 5, 8])

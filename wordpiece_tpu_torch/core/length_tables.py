@@ -30,6 +30,7 @@ from .vocab import Vocabulary, hash_all, _DEFAULT_MULTIPLIERS
 LANES = 128
 LEN_MIX = 0x9E3779B1
 KIND_MIX = 0x85EBCA77
+MAX_TOKEN_ID = 1 << 24
 
 
 @dataclasses.dataclass
@@ -172,11 +173,14 @@ def _round_up(n: int, m: int) -> int:
 def load_length_tables(tables, device) -> DeviceTables:
     """Carry length tables onto `device`.  `tables` is any object with the
     LengthTables fields as numpy arrays and Python ints (this module's
-    LengthTables or the JAX package's)."""
+    LengthTables or the JAX package's).  Raises on a token id >= 2^24."""
     device = torch.device(device)
     k1 = np.ascontiguousarray(np.asarray(tables.k1).view(np.int32))
     k2 = np.ascontiguousarray(np.asarray(tables.k2).view(np.int32))
     tid = np.ascontiguousarray(np.asarray(tables.tid, dtype=np.int32))
+    if tid.size and int(tid.max()) >= MAX_TOKEN_ID:
+        # A packed match (ops/word_kernel.pack_matches) holds an id in 24 bits.
+        raise ValueError(f"token id {int(tid.max())}: ids must be < 2^24")
     packed = np.zeros(k1.shape + (4,), dtype=np.int32)
     packed[..., 0] = k1
     packed[..., 1] = k2

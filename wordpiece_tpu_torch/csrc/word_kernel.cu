@@ -66,19 +66,13 @@
 // ::word_encode_2d_parallel): there the walk needs the matches of every
 // partition, which exist only after they are max-combined, so a probe
 // driven by the walk cannot serve.  They replace the XLA programs
-// wordpiece_tpu/ops/word_kernel.py::word_match and ::word_commit, and run
-// the tile loop below in two more modes:
-//  - match: phases (1) and (2), then every position (not only the visited
-//    ones) probes every length of its window against the given table or
-//    partition, one thread per position, and writes its longest hit
-//    (best_id, best_len), -1 and 0 where nothing hits;
-//  - commit: phases (1)-(4), with each visited position's probe replaced
-//    by a load of the combined (best_id, best_len); it writes the emit
-//    matrices and the counts, as the fused kernel does.
-// What bounds the match mode on this card: the same issue and dependent
-// reads as the fused kernel, times the positions the walk would have
-// skipped (the match probes W positions of a unit, the walk ~1.3); the
-// commit mode reads 8 bytes per visited position and probes nothing.
+// wordpiece_tpu/ops/word_kernel.py::word_match and ::word_commit, have
+// bodies of their own (the notes at each), and share with the fused
+// kernel only the probe's device functions (list_probe, list_fp_hits,
+// confirm_list, window_at, the char-class tests), so the probe cannot
+// drift.  Between them travels one packed int32 match per position:
+// (best_len << 24) | best_id for a hit, 0 for none, so the max over vocab
+// partitions is the longest length, then the largest id (one all_reduce).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,6 +91,7 @@ constexpr int kCompactThreads = 256;
 constexpr int kCompactWarps = kCompactThreads / 32;
 constexpr int kChunkUnits = 64;  // units of one chunk of the compaction: 8 a warp
 constexpr int kPrefetch = 16;  // emit cells a lane loads before the compaction's barrier
+constexpr int kCommitTile = 128;  // positions of one commit block (256 is slower, PERF.md)
 constexpr uint32_t kLenMix = 0x9E3779B1u;
 constexpr uint32_t kKindMix = 0x85EBCA77u;
 constexpr uint32_t kSpaceToken = 9601u;  // U+2581
@@ -105,22 +100,17 @@ constexpr uint8_t kSpace = 1;
 constexpr uint8_t kPunct = 2;
 constexpr uint8_t kSpacing = 4;
 
-// What a launch of the tile loop computes.
-constexpr int kFused = 0;   // match+commit: emits and counts
-constexpr int kMatch = 1;   // every position's longest hit
-constexpr int kCommit = 2;  // emits and counts from given matches
-
 // The buckets of one dispatch, in tile order (widest first).
 struct Buckets {
   const void* cp[kMaxBuckets];    // unit matrix [units, width]
-  int* out[kMaxBuckets];          // emit matrix int32[units, width]
-  int* ids[kMaxBuckets];          // best_id int32[units, width]: match writes, commit reads
-  int* lens[kMaxBuckets];         // best_len int32[units, width]: the same
+  int* out[kMaxBuckets];          // emit matrix int32[units, width] (the match kernel: its
+                                  // packed matches)
+  const int* match[kMaxBuckets];  // the commit kernel's packed matches int32[units, width]
   long long units[kMaxBuckets];
   long long unit_base[kMaxBuckets];  // first unit's index in the counts
   long long tile_end[kMaxBuckets];   // running sum of tiles, in tile order
   int width[kMaxBuckets];
-  int stride[kMaxBuckets];  // S
+  int stride[kMaxBuckets];  // S (W in the match kernel's dense tiles)
   int elem[kMaxBuckets];    // bytes per codepoint: 1, 2 or 4
   int n;
 };
@@ -322,16 +312,14 @@ __device__ __forceinline__ int window_at(UnitBits m_spacing, UnitBits m_punct, i
   return max(min(min(next_set(m_spacing, p + 1), W), p + max_len) - p, 1);
 }
 
-// The tile loop of all three kernels; kMode is kFused, kMatch or kCommit
-// (the notes at the top of this file).
-template <bool kSharedKeys, int kMode>
+// The fused kernel's tile loop (the notes at the top of this file).
+template <bool kSharedKeys>
 __device__ __forceinline__ void run_tiles(const Buckets& d, const int* __restrict__ image,
                                           int off_words, int image_bytes,
                                           const int4* __restrict__ slot_keys,
                                           const uint32_t* __restrict__ lane_salts, int max_len,
                                           uint32_t mult1, uint32_t mult2, int unk_id,
                                           int* __restrict__ counts) {
-  constexpr bool kProbes = kMode != kCommit;  // reads the length tables
   // Dynamic: the slot image (offsets, then fingerprints), in the shared
   // layout.
   extern __shared__ __align__(128) int s_image[];
@@ -350,7 +338,7 @@ __device__ __forceinline__ void run_tiles(const Buckets& d, const int* __restric
   __shared__ uint32_t s_salt[kThreads];  // lane salts | 1; lengths are <= W < 256
   __shared__ __align__(8) uint64_t s_bar;
 
-  if (kProbes && (int)threadIdx.x < kThreads && (int)threadIdx.x <= max_len)
+  if ((int)threadIdx.x < kThreads && (int)threadIdx.x <= max_len)
     s_salt[threadIdx.x] = __ldg(lane_salts + threadIdx.x) | 1u;
   if (kSharedKeys) {
     if (threadIdx.x == 0) stage_async(s_image, image, (uint32_t)image_bytes, &s_bar);
@@ -426,176 +414,370 @@ __device__ __forceinline__ void run_tiles(const Buckets& d, const int* __restric
     const UnitBits m_punct = {s_punct + mbase, n_words};
     const UnitBits m_prefix = {s_prefix + mbase, n_words};
 
-    if constexpr (kMode == kMatch) {
-      // ---- every position's longest in-window hit (ops/word_kernel.py:
-      // 121-168): one thread per position, its lengths in order, each
-      // length's fingerprint hits confirmed against the full keys; the
-      // longest confirmed length wins.
-      if (live) {
-        const uint32_t* ch = s_cp + me;
-        const int lmax = min(window_at(m_spacing, m_punct, j, W, max_len), max_len);
-        const uint32_t kind_mix = bit_at(m_prefix, j) ? kKindMix : 0u;
-        uint32_t h1 = 0u, h2 = 0u;
-        int best_l = 0, best_id = -1;
-        for (int l = 1; l <= lmax; ++l) {
-          h1 = h1 * mult1 + ch[l - 1];
-          h2 = h2 * mult2 + ch[l - 1];
-          const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
-          const FpHits hits = list_fp_hits(fps, pr);
-          if (hits.n) {
-            const int tid = confirm_hits(fps, slot_keys, pr, hits);
-            if (tid >= 0) {
-              best_l = l;
-              best_id = tid;
-            }
-          }
-        }
-        d.ids[b][u * W + j] = best_id;
-        d.lens[b][u * W + j] = best_l;
+    // ---- the greedy walk, probing only the positions it visits --------
+    // (ops/word_kernel.py:86-141 for the probe, :144-183 for the walk.)
+    // The G = min(S, 32) lanes of a unit walk it together: at each
+    // visited position lane q scans the lists of lengths q + 1, q + 1 +
+    // G, ... within the window, the unit takes the longest length whose
+    // list holds the fingerprint, and its lane confirms the full keys in
+    // global memory; on a miss (a fingerprint collision) the next longest
+    // is tried, so the result is exact.  Positions the walk skips are
+    // never probed: the commit reads nothing of them.
+    // The statements keep their shape (umask, ch and pre computed at the
+    // top of a step, the confirm written out below): moved into the
+    // probe's branch, with confirm_hits, they cost the kernel 2 registers
+    // and 1-8% of its time at chip_smoke.py's first dispatches on an H100.
+    const int G = min(S, 32);
+    const unsigned umask =
+        G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
+    int n_vis = 0;
+    int p = 0;
+    bool walking = valid && j < G;
+    while (__any_sync(0xFFFFFFFFu, walking)) {
+      const uint32_t* ch = s_cp + gbase + p;
+      int window = 1;
+      bool pre = false;
+      if (walking) {
+        pre = bit_at(m_prefix, p);
+        window = window_at(m_spacing, m_punct, p, W, max_len);
       }
-    } else {
-      // ---- the greedy walk, probing only the positions it visits --------
-      // (ops/word_kernel.py:86-141 for the probe, :144-183 for the walk.)
-      // The G = min(S, 32) lanes of a unit walk it together: at each
-      // visited position lane q scans the lists of lengths q + 1, q + 1 +
-      // G, ... within the window, the unit takes the longest length whose
-      // list holds the fingerprint, and its lane confirms the full keys in
-      // global memory; on a miss (a fingerprint collision) the next longest
-      // is tried, so the result is exact.  Positions the walk skips are
-      // never probed: the commit reads nothing of them.  The commit mode
-      // loads the given match of each visited position instead.
-      // The fused mode's statements keep the shape they had before the
-      // modes were added (umask, ch and pre computed here, the confirm
-      // written out below): hoisted into the probe branch, with
-      // confirm_hits, they cost the fused kernel 2 registers and 1-8% of
-      // its time at chip_smoke.py's first dispatches on an H100.
-      const int G = min(S, 32);
-      [[maybe_unused]] const unsigned umask =
-          G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
-      int n_vis = 0;
-      int p = 0;
-      bool walking = valid && j < G;
-      while (__any_sync(0xFFFFFFFFu, walking)) {
-        [[maybe_unused]] const uint32_t* ch = s_cp + gbase + p;
-        int window = 1;
-        [[maybe_unused]] bool pre = false;
-        if (walking) {
-          pre = bit_at(m_prefix, p);
-          window = window_at(m_spacing, m_punct, p, W, max_len);
-        }
-        int hit_l = 0, hit_tid = -1;
-        if constexpr (kMode == kCommit) {
-          if (walking) {
-            // ops/word_kernel.py::word_commit: matched iff best_len > 0,
-            // landing at most at the unit end.
-            const long long at = u * W + p;
-            hit_l = min(max(__ldg(d.lens[b] + at), 0), W);
-            hit_tid = __ldg(d.ids[b] + at);
+      int hit_l = 0, hit_tid = -1;
+      const int lmax = walking ? min(window, max_len) : 0;
+      const uint32_t kind_mix = pre ? kKindMix : 0u;
+      bool resolving = walking;  // uniform over a unit's lanes
+      int below = lmax + 1;  // this lane rescans its lengths below this
+      int my_l = 0;          // this lane's longest fingerprint hit
+      ListProbe mine;
+      FpHits mine_hits;
+      while (__any_sync(0xFFFFFFFFu, resolving)) {
+        if (resolving && below > 0) {
+          my_l = 0;
+          uint32_t h1 = 0u, h2 = 0u;
+          int k = 0;
+          for (int l = j + 1; l < below; l += G) {
+            for (; k < l; ++k) {
+              h1 = h1 * mult1 + ch[k];
+              h2 = h2 * mult2 + ch[k];
+            }
+            const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
+            const FpHits hits = list_fp_hits(fps, pr);
+            if (hits.n) {
+              my_l = l;
+              mine = pr;
+              mine_hits = hits;
+            }
           }
-        } else {
-          const int lmax = walking ? min(window, max_len) : 0;
-          const uint32_t kind_mix = pre ? kKindMix : 0u;
-          bool resolving = walking;  // uniform over a unit's lanes
-          int below = lmax + 1;  // this lane rescans its lengths below this
-          int my_l = 0;          // this lane's longest fingerprint hit
-          ListProbe mine;
-          FpHits mine_hits;
-          while (__any_sync(0xFFFFFFFFu, resolving)) {
-            if (resolving && below > 0) {
-              my_l = 0;
-              uint32_t h1 = 0u, h2 = 0u;
-              int k = 0;
-              for (int l = j + 1; l < below; l += G) {
-                for (; k < l; ++k) {
-                  h1 = h1 * mult1 + ch[k];
-                  h2 = h2 * mult2 + ch[k];
-                }
-                const ListProbe pr = list_probe(h1, h2, l, kind_mix, s_salt, offs);
-                const FpHits hits = list_fp_hits(fps, pr);
-                if (hits.n) {
-                  my_l = l;
-                  mine = pr;
-                  mine_hits = hits;
-                }
-              }
-              below = 0;
-            }
-            // The unit's longest candidate length; its lane confirms it.
-            int best_l = resolving ? my_l : 0;
-            for (int o = G >> 1; o > 0; o >>= 1)
-              best_l = max(best_l, __shfl_xor_sync(0xFFFFFFFFu, best_l, o));
-            const bool owner = resolving && best_l > 0 && my_l == best_l;
-            const unsigned owners = __ballot_sync(0xFFFFFFFFu, owner) & umask;
-            int tid = -1;
-            if (owner) {
-              if (mine_hits.n == 1) {
-                const int4 e = __ldg(slot_keys + mine_hits.last);
-                if (e.x == mine.key1 && e.y == mine.key2) tid = e.z;
-              } else {
-                tid = confirm_list(fps, slot_keys, mine);
-              }
-            }
-            tid = __shfl_sync(0xFFFFFFFFu, tid, owners ? __ffs(owners) - 1 : lane);
-            if (resolving) {
-              if (best_l == 0) {
-                resolving = false;  // no list holds the fingerprint: no hit
-              } else if (tid >= 0) {
-                hit_l = best_l;
-                hit_tid = tid;
-                resolving = false;
-              } else if (owner) {
-                below = my_l;  // a fingerprint collision: look below it
-              }
-            }
+          below = 0;
+        }
+        // The unit's longest candidate length; its lane confirms it.
+        int best_l = resolving ? my_l : 0;
+        for (int o = G >> 1; o > 0; o >>= 1)
+          best_l = max(best_l, __shfl_xor_sync(0xFFFFFFFFu, best_l, o));
+        const bool owner = resolving && best_l > 0 && my_l == best_l;
+        const unsigned owners = __ballot_sync(0xFFFFFFFFu, owner) & umask;
+        int tid = -1;
+        if (owner) {
+          if (mine_hits.n == 1) {
+            const int4 e = __ldg(slot_keys + mine_hits.last);
+            if (e.x == mine.key1 && e.y == mine.key2) tid = e.z;
+          } else {
+            tid = confirm_list(fps, slot_keys, mine);
           }
         }
-        if (walking) {
-          if (j == 0) {
-            s_vpos[gbase + n_vis] = (uint8_t)p;
-            s_vlen[gbase + n_vis] = (uint8_t)hit_l;
-            s_vid[gbase + n_vis] = hit_tid;
+        tid = __shfl_sync(0xFFFFFFFFu, tid, owners ? __ffs(owners) - 1 : lane);
+        if (resolving) {
+          if (best_l == 0) {
+            resolving = false;  // no list holds the fingerprint: no hit
+          } else if (tid >= 0) {
+            hit_l = best_l;
+            hit_tid = tid;
+            resolving = false;
+          } else if (owner) {
+            below = my_l;  // a fingerprint collision: look below it
           }
-          ++n_vis;
-          // The next non-space at or after the landing (ops/word_kernel.py:
-          // 164-174); a fail lands on the next word prefix after its
-          // window.  Every step advances >= 1 position, so the walk ends at
-          // W.
-          const int land = hit_l > 0 ? min(p + hit_l, W)
-                                     : min(next_set(m_prefix, min(p + window, W)), W);
-          int q = land;
-          while (q < W && bit_at(m_space, q)) ++q;
-          p = q;
-          walking = p < W;
         }
       }
+      if (walking) {
+        if (j == 0) {
+          s_vpos[gbase + n_vis] = (uint8_t)p;
+          s_vlen[gbase + n_vis] = (uint8_t)hit_l;
+          s_vid[gbase + n_vis] = hit_tid;
+        }
+        ++n_vis;
+        // The next non-space at or after the landing (ops/word_kernel.py:
+        // 164-174); a fail lands on the next word prefix after its
+        // window.  Every step advances >= 1 position, so the walk ends at
+        // W.
+        const int land = hit_l > 0 ? min(p + hit_l, W)
+                                   : min(next_set(m_prefix, min(p + window, W)), W);
+        int q = land;
+        while (q < W && bit_at(m_space, q)) ++q;
+        p = q;
+        walking = p < W;
+      }
+    }
 
-      // ---- rollback + count over the visited positions, in reverse ------
-      // A visited fail kills every emission back to its segment start; the
-      // strict < keeps a fail that IS the next segment start in that later
-      // segment.  Empty (all-space) rows emit nothing.
-      if (valid && j == 0) {
-        const bool empty_row = bit_at(m_space, 0);
-        int n_emit = 0;
-        int next_fail = W + 1;  // first visited fail at or after k
-        int next_seg = W + 1;   // first segment start strictly after k
-        for (int i = n_vis - 1; i >= 0; --i) {
-          const int k = s_vpos[gbase + i];
-          const int ln = s_vlen[gbase + i];
-          if (ln == 0) next_fail = k;
-          const bool killed = next_fail < next_seg;
-          const bool seg_start = bit_at(m_prefix, k);
-          if (seg_start) next_seg = k;
-          if (!empty_row && ((ln > 0 && !killed) || (seg_start && killed))) {
-            s_out[gbase + k] = killed ? unk_id : s_vid[gbase + i];
-            ++n_emit;
-          }
+    // ---- rollback + count over the visited positions, in reverse ------
+    // A visited fail kills every emission back to its segment start; the
+    // strict < keeps a fail that IS the next segment start in that later
+    // segment.  Empty (all-space) rows emit nothing.
+    if (valid && j == 0) {
+      const bool empty_row = bit_at(m_space, 0);
+      int n_emit = 0;
+      int next_fail = W + 1;  // first visited fail at or after k
+      int next_seg = W + 1;   // first segment start strictly after k
+      for (int i = n_vis - 1; i >= 0; --i) {
+        const int k = s_vpos[gbase + i];
+        const int ln = s_vlen[gbase + i];
+        if (ln == 0) next_fail = k;
+        const bool killed = next_fail < next_seg;
+        const bool seg_start = bit_at(m_prefix, k);
+        if (seg_start) next_seg = k;
+        if (!empty_row && ((ln > 0 && !killed) || (seg_start && killed))) {
+          s_out[gbase + k] = killed ? unk_id : s_vid[gbase + i];
+          ++n_emit;
         }
-        counts[d.unit_base[b] + u] = n_emit;
       }
-      group_sync(g);
+      counts[d.unit_base[b] + u] = n_emit;
+    }
+    group_sync(g);
 
-      // ---- emit ---------------------------------------------------------
-      if (live) d.out[b][u * W + j] = s_out[me];
+    // ---- emit ---------------------------------------------------------
+    if (live) d.out[b][u * W + j] = s_out[me];
+    group_sync(g);  // the next tile reuses the group's scratch
+  }
+  // A block never exits with its bulk copy still in flight.
+  if (!staged) mbar_wait(&s_bar, 0);
+}
+
+template <bool kSharedKeys>
+__global__ void __launch_bounds__(kBlock, 1)
+word_match_commit_kernel(const Buckets d, const int* __restrict__ image, int off_words,
+                         int image_bytes, const int4* __restrict__ slot_keys,
+                         const uint32_t* __restrict__ lane_salts, int max_len, uint32_t mult1,
+                         uint32_t mult2, int unk_id, int* __restrict__ counts) {
+  run_tiles<kSharedKeys>(d, image, off_words, image_bytes, slot_keys, lane_salts, max_len, mult1,
+                         mult2, unk_id, counts);
+}
+
+// ---- the split kernels (B9) ----------------------------------------------
+// Both take buckets of width <= kMaxSplitWidth, so a match length fits the
+// packed word's top byte and keeps it positive: the max of packed words is
+// the longest length, then the largest id.
+constexpr int kMaxSplitWidth = 127;
+constexpr int kLenShift = 24;
+constexpr uint32_t kIdMask = (1u << kLenShift) - 1u;
+constexpr int kPowers = kMaxSplitWidth + 1;  // m^0 .. m^127
+
+__device__ __forceinline__ uint8_t char_class(uint32_t c) {
+  uint8_t cls = 0;
+  if (is_space(c)) cls |= kSpace | kSpacing;
+  if (is_punct(c)) cls |= kPunct | kSpacing;
+  if (is_chinese(c)) cls |= kSpacing;
+  return cls;
+}
+
+// The commit kernel's unit masks (run_tiles' layout and masks): the
+// calling warp's ballots of the four classes, written by the first lane of
+// each 32-lane unit word to word mbase + j / 32 of each array.
+__device__ __forceinline__ void write_masks(uint8_t cls, bool prefix, int j, int S, int mbase,
+                                            uint32_t* space, uint32_t* spacing, uint32_t* punct,
+                                            uint32_t* prefixes) {
+  const uint32_t sp = __ballot_sync(0xFFFFFFFFu, cls & kSpace);
+  const uint32_t sg = __ballot_sync(0xFFFFFFFFu, cls & kSpacing);
+  const uint32_t pu = __ballot_sync(0xFFFFFFFFu, cls & kPunct);
+  const uint32_t pr = __ballot_sync(0xFFFFFFFFu, prefix);
+  if ((j & 31) == 0) {
+    const int sh = S < 32 ? (int)(threadIdx.x & 31) : 0;
+    const uint32_t keep = S < 32 ? (1u << S) - 1u : 0xFFFFFFFFu;
+    const int w = mbase + (j >> 5);
+    space[w] = (sp >> sh) & keep;
+    spacing[w] = (sg >> sh) & keep;
+    punct[w] = (pu >> sh) & keep;
+    prefixes[w] = (pr >> sh) & keep;
+  }
+}
+
+// m^e mod 2^32.
+__device__ __forceinline__ uint32_t pow32(uint32_t m, int e) {
+  uint32_t r = 1u;
+  for (; e; e >>= 1, m *= m)
+    if (e & 1) r *= m;
+  return r;
+}
+
+// The slot tables the match kernel probes, and its hash statics in shared
+// memory.
+struct Probe {
+  const int* offs;
+  const uint4* fps;
+  const int4* slot_keys;
+  const uint32_t* salt;  // lane salts | 1, lengths 0 .. kMaxSplitWidth
+  const uint32_t* pw1;   // mult1^l
+  const uint32_t* pw2;
+};
+
+// The probe of length l at a position, whose keys come from the unit's
+// inclusive prefix hashes: h(p, l) = P(p + l) - P(p) m^l, with P(p + l) =
+// i1[l - 1] and P(p) = b1.
+__device__ __forceinline__ ListProbe probe_at(int l, const uint32_t* i1, const uint32_t* i2,
+                                              uint32_t b1, uint32_t b2, uint32_t kind_mix,
+                                              const Probe& t) {
+  return list_probe(i1[l - 1] - b1 * t.pw1[l], i2[l - 1] - b2 * t.pw2[l], l, kind_mix, t.salt,
+                    t.offs);
+}
+
+// The longest length at or below l whose (length, lane) list holds the
+// key's fingerprint, with its probe and hits; 0 when there is none.  Reads
+// shared memory only (in the shared-key layout).
+__device__ __forceinline__ int longest_fp_hit(int l, const uint32_t* i1, const uint32_t* i2,
+                                              uint32_t b1, uint32_t b2, uint32_t kind_mix,
+                                              const Probe& t, ListProbe* pr, FpHits* hits) {
+  for (; l > 0; --l) {
+    *pr = probe_at(l, i1, i2, b1, b2, kind_mix, t);
+    *hits = list_fp_hits(t.fps, *pr);
+    if (hits->n) break;
+  }
+  return l;
+}
+
+// The longest hit at a position at or below length l, lengths tried
+// longest first, each fingerprint hit confirmed against the full keys in
+// global memory as it is met; a collision goes on below.  Returns the
+// packed match, 0 for none.
+__device__ __forceinline__ int longest_hit(int l, const uint32_t* i1, const uint32_t* i2,
+                                           uint32_t b1, uint32_t b2, uint32_t kind_mix,
+                                           const Probe& t) {
+  for (ListProbe pr; l > 0; --l) {
+    FpHits hits;
+    l = longest_fp_hit(l, i1, i2, b1, b2, kind_mix, t, &pr, &hits);
+    if (l == 0) break;
+    const int tid = confirm_hits(t.fps, t.slot_keys, pr, hits);
+    if (tid >= 0) return (l << kLenShift) | tid;
+  }
+  return 0;
+}
+
+// The match kernel: every position's longest in-window hit against the
+// given table or partition, written as one packed int32 (0: none).  It
+// replaces wordpiece_tpu/ops/word_kernel.py::word_match (:77-145) and
+// computes what ops/word_kernel.py::word_match computes, id for id.
+//
+// What bounds it on this card: the fingerprint scans of every position's
+// lengths, random shared-memory reads across all 32 warps of an SM, and
+// the rounds of tiles (a dispatch moves ~1 MB; its bytes bound is ~0.3
+// us).  What the design does about it:
+//  - the probe tables are the fused kernel's: the slot image (list offsets
+//    and 16-bit fingerprints) staged once per persistent block by one bulk
+//    async copy, or read from global memory where it does not fit;
+//  - longest first, one confirmation: a position's lengths are scanned
+//    from its window's longest down to the first whose list holds the
+//    fingerprint, in shared memory only, and only that one is confirmed
+//    against the full keys in global memory, the warp's lanes together:
+//    one round trip a warp, not one for each length at which some lane
+//    hits.  A collision falls back to the next longest, as the fused
+//    kernel's walk does, so the result is exact;
+//  - the keys of any (position, length) pair cost O(1): the unit's prefix
+//    hashes and m^l from a table in shared memory, so the lengths need not
+//    be walked in order;
+//  - units are packed densely, 256 / W a tile, unit slot g at lanes [g W,
+//    g W + W): no lane is a pad column (run_tiles pads each unit to a power
+//    of two), so a dispatch needs fewer tiles, one round of them at the en
+//    first dispatch; each lane finds its own prefix hashes, window and
+//    kind from the unit's codepoints and classes in shared memory.
+template <bool kSharedKeys>
+__global__ void __launch_bounds__(kBlock, 1)
+word_match_kernel(const Buckets d, const int* __restrict__ image, int off_words, int image_bytes,
+                  const int4* __restrict__ slot_keys, const uint32_t* __restrict__ lane_salts,
+                  int max_len, uint32_t mult1, uint32_t mult2) {
+  extern __shared__ __align__(128) int s_image[];
+  __shared__ uint32_t s_cp[kBlock];                // the units, packed
+  __shared__ uint32_t s_i1[kBlock], s_i2[kBlock];  // their inclusive prefix hashes
+  __shared__ uint8_t s_cls[kBlock];
+  __shared__ uint32_t s_pw1[kPowers], s_pw2[kPowers], s_salt[kPowers];
+  __shared__ __align__(8) uint64_t s_bar;
+
+  if ((int)threadIdx.x < kPowers) {
+    s_pw1[threadIdx.x] = pow32(mult1, threadIdx.x);
+    s_pw2[threadIdx.x] = pow32(mult2, threadIdx.x);
+    if ((int)threadIdx.x <= max_len) s_salt[threadIdx.x] = __ldg(lane_salts + threadIdx.x) | 1u;
+  }
+  if (kSharedKeys && threadIdx.x == 0) stage_async(s_image, image, (uint32_t)image_bytes, &s_bar);
+  __syncthreads();  // the tables are in place, the barrier is initialised
+  const int* offs = kSharedKeys ? s_image : image;
+  const Probe probe = {offs, reinterpret_cast<const uint4*>(offs + off_words), slot_keys, s_salt,
+                       s_pw1, s_pw2};
+  bool staged = !kSharedKeys;
+
+  const int g = threadIdx.x / kThreads;
+  const int t = threadIdx.x - g * kThreads;
+  const int base = g * kThreads;
+  const long long n_tiles = d.tile_end[d.n - 1];
+  for (long long tile = (long long)g * gridDim.x + blockIdx.x; tile < n_tiles;
+       tile += (long long)gridDim.x * kGroups) {
+    int b = 0;
+    while (tile >= d.tile_end[b]) ++b;
+    const long long tile0 = b ? d.tile_end[b - 1] : 0;
+    const int W = d.width[b];
+    const int per = kThreads / W;  // units a tile
+    const int slot = t / W;
+    const int j = t - slot * W;
+    const long long u = (tile - tile0) * per + slot;
+    const bool live = slot < per && u < d.units[b];
+    const int me = base + t;
+    const uint32_t* unit_cp = s_cp + (me - j);
+
+    // ---- stage the units ---------------------------------------------------
+    const uint32_t c = live ? load_cp(d.cp[b], d.elem[b], u * W + j) : 32u;
+    const uint8_t cls = char_class(c);
+    s_cp[me] = c;
+    s_cls[me] = cls;
+    group_sync(g);
+
+    // ---- the position's prefix hashes, window and kind ----------------------
+    // (src/fast.cpp:38-60: the window runs to the first spacing char
+    // strictly after j, capped at max_len and the unit end; 1 for punct.)
+    uint32_t i1 = 0u, i2 = 0u, kind_mix = 0u;
+    int lmax = 0;
+    if (live) {
+      for (int k = 0; k <= j; ++k) {
+        const uint32_t ck = unit_cp[k];
+        i1 = i1 * mult1 + ck;
+        i2 = i2 * mult2 + ck;
+      }
+      int k = j + 1;
+      if (!(cls & kPunct)) {
+        const int end = min(W, j + max_len);
+        while (k < end && !(s_cls[me - j + k] & kSpacing)) ++k;
+      }
+      lmax = min(max(k - j, 1), max_len);
+      if (j == 0 || (cls & kSpacing) || (s_cls[me - 1] & kSpacing)) kind_mix = kKindMix;
+    }
+    s_i1[me] = i1;
+    s_i2[me] = i2;
+    group_sync(g);
+
+    if (!staged) {
+      mbar_wait(&s_bar, 0);
+      staged = true;
+    }
+    // ---- longest first: the fingerprint scans of every lane in shared
+    // memory, then, the warp together, one confirmation in global memory
+    // (one round trip a warp, not one for each length some lane hits at);
+    // a fingerprint collision goes on below it, lane by lane.
+    const uint32_t b1 = j ? s_i1[me - 1] : 0u, b2 = j ? s_i2[me - 1] : 0u;
+    ListProbe pr;
+    FpHits hits;
+    const int l = longest_fp_hit(lmax, s_i1 + me, s_i2 + me, b1, b2, kind_mix, probe, &pr, &hits);
+    __syncwarp();
+    if (live) {
+      int packed = 0;
+      if (l > 0) {
+        const int tid = confirm_hits(probe.fps, slot_keys, pr, hits);
+        packed = tid >= 0 ? (l << kLenShift) | tid
+                          : longest_hit(l - 1, s_i1 + me, s_i2 + me, b1, b2, kind_mix, probe);
+      }
+      d.out[b][u * W + j] = packed;
     }
     group_sync(g);  // the next tile reuses the group's scratch
   }
@@ -603,33 +785,112 @@ __device__ __forceinline__ void run_tiles(const Buckets& d, const int* __restric
   if (!staged) mbar_wait(&s_bar, 0);
 }
 
-#define WORD_KERNEL_PARAMS                                                                   \
-  const Buckets d, const int* __restrict__ image, int off_words, int image_bytes,           \
-      const int4* __restrict__ slot_keys, const uint32_t* __restrict__ lane_salts,           \
-      int max_len, uint32_t mult1, uint32_t mult2, int unk_id, int* __restrict__ counts
-#define WORD_KERNEL_ARGS \
-  d, image, off_words, image_bytes, slot_keys, lane_salts, max_len, mult1, mult2, unk_id, counts
+// The commit kernel: the greedy walk over given (combined) packed matches,
+// the whole-word UNK rollback and the emit, writing the emit matrices and
+// each unit's emit count.  It replaces wordpiece_tpu/ops/word_kernel.py::
+// word_commit (:148-215) and computes what ops/word_kernel.py::word_commit
+// computes.
+//
+// What bounds it: the launch and the latency of the tile's one load and of
+// the walk's dependent steps (a dispatch moves ~0.9 MB).  The design:
+//  - one tile of kCommitTile positions a block, and as many blocks as
+//    tiles: there is no table to stage, so nothing asks for persistent
+//    blocks;
+//  - each position loads its packed match beside its codepoint, one
+//    coalesced load each, into shared memory; the walk's steps, the
+//    rollback and the emit then read only shared memory;
+//  - one lane per unit walks it, marking the visited positions in a bit
+//    mask that the rollback reads back in reverse.
+__global__ void __launch_bounds__(kCommitTile)
+word_commit_kernel(const Buckets d, int max_len, int unk_id, int* __restrict__ counts) {
+  constexpr int kT = kCommitTile;
+  __shared__ int s_m[kT];  // the tile's packed matches
+  __shared__ int s_out[kT];
+  __shared__ uint8_t s_cls[kT];
+  constexpr int kWords = kT / 2;
+  __shared__ uint32_t s_space[kWords], s_spacing[kWords], s_punct[kWords], s_prefix[kWords];
+  __shared__ uint32_t s_vis[kWords];  // the walk's visited positions
 
-template <bool kSharedKeys>
-__global__ void __launch_bounds__(kBlock, 1) word_match_commit_kernel(WORD_KERNEL_PARAMS) {
-  run_tiles<kSharedKeys, kFused>(WORD_KERNEL_ARGS);
-}
+  const int t = threadIdx.x;
+  const long long tile = blockIdx.x;
+  int b = 0;
+  while (tile >= d.tile_end[b]) ++b;
+  const long long tile0 = b ? d.tile_end[b - 1] : 0;
+  const int W = d.width[b];
+  const int S = d.stride[b];
+  const int slot = t / S;
+  const int j = t - slot * S;
+  const int gbase = slot * S;
+  const long long u = (tile - tile0) * (kT / S) + slot;
+  const bool valid = u < d.units[b];
+  const bool live = valid && j < W;
+  const long long at = u * W + j;
+  const int n_words = S > 32 ? S >> 5 : 1;
+  const int mbase = slot * n_words;
 
-template <bool kSharedKeys>
-__global__ void __launch_bounds__(kBlock, 1) word_match_kernel(WORD_KERNEL_PARAMS) {
-  run_tiles<kSharedKeys, kMatch>(WORD_KERNEL_ARGS);
-}
+  uint32_t c = 32u;
+  int m = 0;
+  if (live) {
+    c = load_cp(d.cp[b], d.elem[b], at);
+    m = __ldg(d.match[b] + at);
+  }
+  const uint8_t cls = char_class(c);
+  s_cls[t] = cls;
+  s_m[t] = m;
+  s_out[t] = -2;
+  __syncthreads();
+  write_masks(cls, j == 0 || (cls & kSpacing) || (s_cls[t - 1] & kSpacing), j, S, mbase, s_space,
+              s_spacing, s_punct, s_prefix);
+  __syncthreads();
 
-__global__ void __launch_bounds__(kBlock, 1) word_commit_kernel(WORD_KERNEL_PARAMS) {
-  run_tiles<false, kCommit>(WORD_KERNEL_ARGS);
-}
-
-using WordKernel = void (*)(WORD_KERNEL_PARAMS);
-
-WordKernel word_kernel(int mode, bool shared_keys) {
-  if (mode == kMatch) return shared_keys ? word_match_kernel<true> : word_match_kernel<false>;
-  if (mode == kCommit) return word_commit_kernel;
-  return shared_keys ? word_match_commit_kernel<true> : word_match_commit_kernel<false>;
+  if (valid && j == 0) {
+    const UnitBits m_space = {s_space + mbase, n_words};
+    const UnitBits m_spacing = {s_spacing + mbase, n_words};
+    const UnitBits m_punct = {s_punct + mbase, n_words};
+    const UnitBits m_prefix = {s_prefix + mbase, n_words};
+    uint32_t* vis = s_vis + mbase;
+    for (int w = 0; w < n_words; ++w) vis[w] = 0u;
+    const int* mrow = s_m + gbase;
+    // ---- the greedy walk (ops/word_kernel.py::walk_visited): matched iff
+    // the length is > 0, landing at most at the unit end, then the next
+    // non-space; a fail lands on the next word prefix after its window.
+    for (int p = 0; p < W;) {
+      vis[p >> 5] |= 1u << (p & 31);
+      const int hit = min((int)((uint32_t)mrow[p] >> kLenShift), W);
+      int q = hit > 0 ? min(p + hit, W)
+                      : min(next_set(m_prefix, min(p + window_at(m_spacing, m_punct, p, W, max_len),
+                                                   W)),
+                            W);
+      while (q < W && bit_at(m_space, q)) ++q;
+      p = q;
+    }
+    // ---- rollback + count over the visited positions, in reverse (the
+    // fused kernel's, run_tiles).
+    const bool empty_row = bit_at(m_space, 0);
+    int n_emit = 0;
+    int next_fail = W + 1;  // first visited fail at or after k
+    int next_seg = W + 1;   // first segment start strictly after k
+    for (int w = n_words - 1; w >= 0; --w) {
+      for (uint32_t v = vis[w]; v;) {
+        const int bit = 31 - __clz(v);
+        v &= ~(1u << bit);
+        const int k = (w << 5) + bit;
+        const uint32_t mk = (uint32_t)mrow[k];
+        const bool hit = (mk >> kLenShift) > 0u;
+        if (!hit) next_fail = k;
+        const bool killed = next_fail < next_seg;
+        const bool seg_start = bit_at(m_prefix, k);
+        if (seg_start) next_seg = k;
+        if (!empty_row && ((hit && !killed) || (seg_start && killed))) {
+          s_out[gbase + k] = killed ? unk_id : (int)(mk & kIdMask);
+          ++n_emit;
+        }
+      }
+    }
+    counts[d.unit_base[b] + u] = n_emit;
+  }
+  __syncthreads();
+  if (live) d.out[b][at] = s_out[t];
 }
 
 // Block-wide exclusive scan of v over kCompactThreads threads, and the
@@ -823,19 +1084,21 @@ compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
 }
 
 // Fills `d` from the caller's bucket arrays (caller order); entries are
-// stored widest first if `widest_first`, else in caller order.
-// `cps`/`elem` may be null (the compaction), `ids`/`lens` (the match
-// matrices) are null but for the match and commit kernels.
+// stored widest first if `widest_first`, else in caller order.  A tile
+// holds `tile_threads` / S units, S the power of two >= W + 1, or S = W if
+// `dense` (the match kernel); widths must be < tile_threads and <=
+// max_width.  `cps`/`elem` may be null (the compaction); `match` (the
+// packed matches) is null but for the commit kernel.
 int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
                  const long long* units, const int* widths, void* const* outs,
-                 bool widest_first, long long* total_units, void* const* ids = nullptr,
-                 void* const* lens = nullptr) {
+                 bool widest_first, long long* total_units, const void* const* match = nullptr,
+                 int tile_threads = kThreads, int max_width = kThreads - 1, bool dense = false) {
   if (n < 1 || n > kMaxBuckets) return cudaErrorInvalidValue;
   long long unit_base[kMaxBuckets];
   int order[kMaxBuckets];
   long long acc = 0;
   for (int i = 0; i < n; ++i) {
-    if (widths[i] < 1 || widths[i] >= kThreads || units[i] < 0)
+    if (widths[i] < 1 || widths[i] >= tile_threads || widths[i] > max_width || units[i] < 0)
       return cudaErrorInvalidValue;
     if (elem && elem[i] != 1 && elem[i] != 2 && elem[i] != 4)
       return cudaErrorInvalidValue;
@@ -851,14 +1114,13 @@ int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
   long long tiles = 0;
   for (int k = 0; k < n; ++k) {
     const int i = order[k];
-    int S = 1;
-    while (S < widths[i] + 1) S <<= 1;
-    const int per_tile = kThreads / S;
+    int S = dense ? widths[i] : 1;
+    while (S < widths[i] + 1 && !dense) S <<= 1;
+    const int per_tile = tile_threads / S;
     tiles += (units[i] + per_tile - 1) / per_tile;
     d->cp[k] = cps ? cps[i] : nullptr;
     d->out[k] = static_cast<int*>(outs[i]);
-    d->ids[k] = ids ? static_cast<int*>(ids[i]) : nullptr;
-    d->lens[k] = lens ? static_cast<int*>(lens[i]) : nullptr;
+    d->match[k] = match ? static_cast<const int*>(match[i]) : nullptr;
     d->units[k] = units[i];
     d->unit_base[k] = unit_base[i];
     d->tile_end[k] = tiles;
@@ -871,63 +1133,48 @@ int fill_buckets(Buckets* d, int n, const void* const* cps, const int* elem,
   return cudaSuccess;
 }
 
-// Launches the tile loop in `mode` over the tiles of `d`, as many
-// persistent blocks as fit and no block without a tile.  The match modes
-// take the slot image in shared memory when it fits beside the kernel's
-// static shared memory and one block still fits on an SM, unless
-// force_global; the commit reads no table.  *mode_out is 0 (shared keys),
-// 1 (global keys or no keys) or -1 (no tiles: nothing launched).
-int launch_tiles(int mode, const Buckets& d, const void* image, int off_words, int image_words,
-                 const void* slot_keys, const void* lane_salts, int max_len, unsigned int mult1,
-                 unsigned int mult2, int unk_id, void* counts, int force_global, int* mode_out,
-                 void* stream) {
-  *mode_out = -1;
-  if (max_len < 0) return cudaErrorInvalidValue;
-  const bool probes = mode != kCommit;
-  if (probes && (off_words % 4 || image_words % 4 || image_words < off_words))
-    return cudaErrorInvalidValue;
-  const long long n_tiles = d.tile_end[d.n - 1];
-  if (n_tiles == 0) return cudaSuccess;
-
-  int rc, dev = 0, sms = 0, optin = 0;
+// The layout and grid of a kernel that probes the slot image (the fused
+// and the match kernel, k_shared / k_global its two layouts): the image in
+// shared memory when it fits beside the kernel's static shared memory and
+// one block still fits on an SM, unless force_global; persistent blocks,
+// as many as fit and none without a tile.
+int plan_probe(const void* k_shared, const void* k_global, long long n_tiles,
+               long long image_bytes, bool force_global, bool* shared, unsigned* blocks) {
+  int rc, dev = 0, sms = 0, optin = 0, per_sm = 0;
   if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
   if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return rc;
   if ((rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return rc;
-  const long long image_bytes = probes ? (long long)image_words * 4 : 0;
-  bool shared = false;
-  int per_sm = 0;
-  if (probes && !force_global) {
-    const WordKernel k = word_kernel(mode, true);
+  *shared = false;
+  if (!force_global) {
     cudaFuncAttributes fa;
-    if ((rc = cudaFuncGetAttributes(&fa, k)) != cudaSuccess) return rc;
-    shared = image_bytes + (long long)fa.sharedSizeBytes <= optin;
-    if (shared) {
-      rc = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)image_bytes);
+    if ((rc = cudaFuncGetAttributes(&fa, k_shared)) != cudaSuccess) return rc;
+    *shared = image_bytes + (long long)fa.sharedSizeBytes <= optin;
+    if (*shared) {
+      rc = cudaFuncSetAttribute(k_shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)image_bytes);
       if (rc != cudaSuccess) return rc;
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kBlock, (size_t)image_bytes);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_shared, kBlock,
+                                                         (size_t)image_bytes);
       if (rc != cudaSuccess) return rc;
-      shared = per_sm > 0;
+      *shared = per_sm > 0;
     }
   }
-  const WordKernel k = word_kernel(mode, shared);
-  if (!shared) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kBlock, 0);
+  if (!*shared) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_global, kBlock, 0);
     if (rc != cudaSuccess) return rc;
   }
   if (per_sm < 1) per_sm = 1;  // the launch itself then reports the failure
-  long long blocks = (long long)sms * per_sm;
-  if (blocks > n_tiles) blocks = n_tiles;
+  *blocks = (unsigned)std::min((long long)sms * per_sm, n_tiles);
+  return cudaSuccess;
+}
 
-  k<<<(unsigned)blocks, kBlock, shared ? (size_t)image_bytes : 0,
-      static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const int*>(image), off_words, (int)image_bytes,
-      static_cast<const int4*>(slot_keys), static_cast<const uint32_t*>(lane_salts), max_len,
-      mult1, mult2, unk_id, static_cast<int*>(counts));
-  *mode_out = shared ? 0 : 1;
-  return (int)cudaGetLastError();
+int check_image(int off_words, int image_words, int max_len) {
+  return max_len < 0 || off_words % 4 || image_words % 4 || image_words < off_words
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
 }
 
 }  // namespace
@@ -935,7 +1182,9 @@ int launch_tiles(int mode, const Buckets& d, const void* image, int off_words, i
 // Plain C entry points (loaded with ctypes).  Each returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // arguments the kernel does not take.  Launches on `stream`, never
-// synchronises, allocates nothing.  *mode_out as launch_tiles sets it.
+// synchronises, allocates nothing.  *mode_out is 0 (the slot image in
+// shared memory), 1 (in global memory, or no table) or -1 (no tiles:
+// nothing launched).
 //
 // The table: `image` is int32[image_words]: the (max_len + 1) * 128 + 1
 // slot offsets, padded to off_words, then the slots' 16-bit k1
@@ -955,46 +1204,81 @@ extern "C" int wp_word_match_commit(
   Buckets d;
   long long total = 0;
   int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, true, &total);
+  if (rc == cudaSuccess) rc = check_image(off_words, image_words, max_len);
   if (rc != cudaSuccess) return rc;
-  return launch_tiles(kFused, d, image, off_words, image_words, slot_keys, lane_salts, max_len,
-                      mult1, mult2, unk_id, counts, force_global, mode_out, stream);
+  const long long n_tiles = d.tile_end[d.n - 1];
+  if (n_tiles == 0) return cudaSuccess;
+  const long long image_bytes = (long long)image_words * 4;
+  bool shared;
+  unsigned blocks;
+  rc = plan_probe((const void*)word_match_commit_kernel<true>,
+                  (const void*)word_match_commit_kernel<false>, n_tiles, image_bytes,
+                  force_global, &shared, &blocks);
+  if (rc != cudaSuccess) return rc;
+  auto k = shared ? word_match_commit_kernel<true> : word_match_commit_kernel<false>;
+  k<<<blocks, kBlock, shared ? (size_t)image_bytes : 0, static_cast<cudaStream_t>(stream)>>>(
+      d, static_cast<const int*>(image), off_words, (int)image_bytes,
+      static_cast<const int4*>(slot_keys), static_cast<const uint32_t*>(lane_salts), max_len,
+      mult1, mult2, unk_id, static_cast<int*>(counts));
+  *mode_out = shared ? 0 : 1;
+  return (int)cudaGetLastError();
 }
 
 // Every position's longest in-window hit, every bucket in one launch:
-// best_ids / best_lens are int32[units, width] per bucket (-1 / 0 where
-// nothing hits).
+// `packed` are int32[units, width] per bucket, (best_len << 24) | best_id
+// for a hit and 0 for none; widths <= 127.
 extern "C" int wp_word_match(
     int n_buckets, const void* const* cps, const int* elem_bytes,
-    const long long* n_units, const int* widths, void* const* best_ids, void* const* best_lens,
+    const long long* n_units, const int* widths, void* const* packed,
     const void* image, int off_words, int image_words, const void* slot_keys,
     const void* lane_salts, int max_len, unsigned int mult1, unsigned int mult2,
     int force_global, int* mode_out, void* stream) {
   *mode_out = -1;
   Buckets d;
   long long total = 0;
-  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, best_ids, true, &total,
-                        best_ids, best_lens);
+  int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, packed, true, &total,
+                        nullptr, kThreads, kMaxSplitWidth, true);
+  if (rc == cudaSuccess) rc = check_image(off_words, image_words, max_len);
   if (rc != cudaSuccess) return rc;
-  return launch_tiles(kMatch, d, image, off_words, image_words, slot_keys, lane_salts, max_len,
-                      mult1, mult2, -1, nullptr, force_global, mode_out, stream);
+  const long long n_tiles = d.tile_end[d.n - 1];
+  if (n_tiles == 0) return cudaSuccess;
+  const long long image_bytes = (long long)image_words * 4;
+  bool shared;
+  unsigned blocks;
+  rc = plan_probe((const void*)word_match_kernel<true>, (const void*)word_match_kernel<false>,
+                  n_tiles, image_bytes, force_global, &shared, &blocks);
+  if (rc != cudaSuccess) return rc;
+  auto k = shared ? word_match_kernel<true> : word_match_kernel<false>;
+  k<<<blocks, kBlock, shared ? (size_t)image_bytes : 0, static_cast<cudaStream_t>(stream)>>>(
+      d, static_cast<const int*>(image), off_words, (int)image_bytes,
+      static_cast<const int4*>(slot_keys), static_cast<const uint32_t*>(lane_salts), max_len,
+      mult1, mult2);
+  *mode_out = shared ? 0 : 1;
+  return (int)cudaGetLastError();
 }
 
 // The walk, rollback and emit of every bucket in one launch, from the
-// given (combined) matches best_ids / best_lens int32[units, width]:
-// writes the emit matrices `outs` and each unit's emit count to `counts`
-// (caller order).
+// given (combined) packed matches int32[units, width] (wp_word_match's
+// layout; widths <= 127): writes the emit matrices `outs` and each unit's
+// emit count to `counts` (caller order); one block per tile of
+// kCommitTile positions.
 extern "C" int wp_word_commit(
     int n_buckets, const void* const* cps, const int* elem_bytes,
-    const long long* n_units, const int* widths, void* const* best_ids, void* const* best_lens,
-    void* const* outs, int max_len, int unk_id, void* counts, int* mode_out, void* stream) {
+    const long long* n_units, const int* widths, const void* const* packed, void* const* outs,
+    int max_len, int unk_id, void* counts, int* mode_out, void* stream) {
   *mode_out = -1;
   Buckets d;
   long long total = 0;
   int rc = fill_buckets(&d, n_buckets, cps, elem_bytes, n_units, widths, outs, true, &total,
-                        best_ids, best_lens);
+                        packed, kCommitTile, kMaxSplitWidth);
+  if (rc == cudaSuccess && max_len < 0) rc = cudaErrorInvalidValue;
   if (rc != cudaSuccess) return rc;
-  return launch_tiles(kCommit, d, nullptr, 0, 0, nullptr, nullptr, max_len, 0u, 0u, unk_id,
-                      counts, 1, mode_out, stream);
+  const long long n_tiles = d.tile_end[d.n - 1];
+  if (n_tiles == 0) return cudaSuccess;
+  word_commit_kernel<<<(unsigned)n_tiles, kCommitTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, max_len, unk_id, static_cast<int*>(counts));
+  *mode_out = 1;
+  return (int)cudaGetLastError();
 }
 
 // The compact vector int32[1 + n + cap] from the emit matrices: `fused[1 :

@@ -27,6 +27,9 @@ from ..core.length_tables import KIND_MIX, LEN_MIX
 from . import text_features as tf
 
 MASK32 = 0xFFFFFFFF
+LEN_SHIFT = 24  # a packed match: (best_len << LEN_SHIFT) | best_id
+ID_MASK = (1 << LEN_SHIFT) - 1
+MAX_PACKED_WIDTH = 127  # best_len <= width keeps a packed match positive
 
 
 def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
@@ -166,6 +169,27 @@ def word_match(
         best_id = torch.where(any_hit, cid, best_id)
         best_len = torch.where(any_hit, l, best_len)
     return best_id, best_len
+
+
+def pack_matches(best_id: torch.Tensor, best_len: torch.Tensor, width: int) -> torch.Tensor:
+    """(best_id, best_len) of a [U, width] bucket -> its packed matches
+    int32[U, width]: (min(best_len, width) << 24) | best_id where best_len
+    > 0, else 0 (word_commit reads a length as min(best_len, width), and
+    ids lie in [0, 2^24): core/length_tables.load_length_tables).  The
+    max of packed matches over vocab partitions is the longest length,
+    then the largest id: the two pmax of the JAX package's combine."""
+    if width > MAX_PACKED_WIDTH:
+        raise ValueError(f"width {width}: a packed match takes widths <= {MAX_PACKED_WIDTH}")
+    blen = best_len.to(torch.int64).clamp(0, width)
+    hit = (blen << LEN_SHIFT) | (best_id.to(torch.int64) & ID_MASK)
+    return torch.where(blen > 0, hit, 0).to(torch.int32)
+
+
+def unpack_matches(packed: torch.Tensor):
+    """Packed matches -> (best_id, best_len), int32, -1 and 0 where nothing
+    hits."""
+    best_len = packed >> LEN_SHIFT
+    return torch.where(best_len > 0, packed & ID_MASK, -1), best_len
 
 
 def walk_visited(pos, space, wp, window, best_len) -> torch.Tensor:

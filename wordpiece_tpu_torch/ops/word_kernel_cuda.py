@@ -8,10 +8,13 @@ Four kernels live in csrc/word_kernel.cu:
     package's word_match_commit_compact (compact_from_counts);
   - the same function split in two for a vocabulary partitioned over
     ranks (parallel/word_sharding.py): the match kernel, every position's
-    longest hit against a table or partition (word_match_multi, replacing
+    longest hit against a table or partition (word_match_packed, replacing
     the XLA program wordpiece_tpu/ops/word_kernel.py::word_match), and the
     commit kernel, the walk, rollback and emit from given matches
-    (word_commit_multi, replacing ::word_commit).
+    (word_commit_packed, replacing ::word_commit).  Between them travels
+    one packed int32 match per position (ops/word_kernel.pack_matches);
+    word_match_multi and word_commit_multi are the same kernels with the
+    (best_id, best_len) pairs of the JAX functions at their edges.
 They are compiled with nvcc for sm_90a into one library with a plain C
 interface, at first use, into this package's build/ directory (ignored by
 git; ops/cuda_build.py), and loaded with ctypes.  Nothing here is compiled
@@ -25,8 +28,8 @@ stream, or raises; it never falls back.  Counts of launches:
 `word_match_commit_multi.launches_global` (those that read the slot
 image, the list offsets and key fingerprints, from global memory instead
 of staging it in shared memory), `compact_from_counts.launches`,
-`word_match_multi.launches` (and `.launches_global`) and
-`word_commit_multi.launches`.
+`word_match_packed.launches` (and `.launches_global`) and
+`word_commit_packed.launches`.
 
 Layouts:
   - a bucket is a narrow unit matrix uint8/uint16/int32[U, W] (W = the
@@ -35,7 +38,9 @@ Layouts:
   - the emit matrix is int32[U, W]: a token id per emitting position,
     -2 elsewhere;
   - a bucket's matches are (best_id, best_len) int32[U, W]: the longest
-    in-window hit of every position, -1 and 0 where nothing hits;
+    in-window hit of every position, -1 and 0 where nothing hits; packed,
+    one int32[U, W], (best_len << 24) | best_id and 0 where nothing hits
+    (the split kernels take widths <= 127);
   - the compact vector (word_match_commit_compact) is int32[1 + U_total
     + cap]: the total id count, the per-unit counts of every bucket in
     order, then (token_id + 2) * 128 + position for every emitted id in
@@ -54,7 +59,9 @@ import torch
 
 from ..core.length_tables import DeviceTables
 from .cuda_build import BUILD_DIR, CSRC_DIR, build_library
-from .word_kernel import word_commit, word_match, word_match_commit
+from .word_kernel import (
+    MAX_PACKED_WIDTH, pack_matches, unpack_matches, word_commit, word_match, word_match_commit,
+)
 
 SOURCE = os.path.join(CSRC_DIR, "word_kernel.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libword_kernel.so")
@@ -112,8 +119,7 @@ def build(*, force: bool = False):
             _PI,  # bytes per codepoint, per bucket
             _PLL,  # units, per bucket
             _PI,  # widths
-            _PP,  # best_id matrices int32[U, W]
-            _PP,  # best_len matrices int32[U, W]
+            _PP,  # packed match matrices int32[U, W]
             _P,  # slot image
             ctypes.c_int,  # off_words
             ctypes.c_int,  # image words
@@ -134,8 +140,7 @@ def build(*, force: bool = False):
             _PI,  # bytes per codepoint, per bucket
             _PLL,  # units, per bucket
             _PI,  # widths
-            _PP,  # best_id matrices int32[U, W] (the combined matches)
-            _PP,  # best_len matrices int32[U, W]
+            _PP,  # packed match matrices int32[U, W] (the combined matches)
             _PP,  # emit matrices int32[U, W]
             ctypes.c_int,  # max_len
             ctypes.c_int,  # unk_id
@@ -272,35 +277,58 @@ def _fill_counts(counts, emits) -> None:
         counts.copy_(torch.cat([(e != -2).sum(dim=1, dtype=torch.int32) for e in emits]))
 
 
-def word_match_multi(cps, tables: DeviceTables, *, global_keys: bool = False) -> list[tuple]:
-    """Every bucket's matches (best_id, best_len), each int32[U, W], in ONE
-    kernel launch on the card: the longest in-window hit of every
-    position against `tables` (the whole table or one partition of
-    parallel/word_sharding.shard_word_tables).  `global_keys` as for
+def _check_split(cps, dev) -> tuple[list[int], list[int]]:
+    units, widths = _check_units(cps, dev)
+    if max(widths) > MAX_PACKED_WIDTH:
+        raise ValueError(f"width {max(widths)}: a packed match takes widths <= {MAX_PACKED_WIDTH}")
+    return units, widths
+
+
+def _flat_views(flat: torch.Tensor, cps) -> list[torch.Tensor]:
+    """The buckets' [U, W] matrices, back to back in `flat`."""
+    out, off = [], 0
+    for cp in cps:
+        k = cp.shape[0] * cp.shape[1]
+        out.append(flat[off : off + k].view(cp.shape))
+        off += k
+    return out
+
+
+def word_match_packed(
+    cps, tables: DeviceTables, *, out: torch.Tensor | None = None, global_keys: bool = False
+) -> list[torch.Tensor]:
+    """Every bucket's packed matches int32[U, W] (ops/word_kernel.
+    pack_matches: the longest in-window hit of every position against
+    `tables`, the whole table or one partition of parallel/word_sharding.
+    shard_word_tables), in ONE kernel launch on the card.  `out`
+    (int32[sum of U * W], optional) receives the buckets' matrices back to
+    back, and the returned matrices are views of it.  `global_keys` as for
     word_match_commit_multi."""
     cps = list(cps)
     dev = tables.packed.device
     for cp in cps:
         if cp.dim() != 2 or cp.device != dev:
             raise ValueError(f"unit matrices must be 2-D on {dev}")
+    n_cells = sum(int(cp.shape[0]) * int(cp.shape[1]) for cp in cps)
+    if out is None:
+        out = torch.empty(n_cells, dtype=torch.int32, device=dev)
+    elif out.shape != (n_cells,) or out.dtype != torch.int32 or out.device != dev:
+        raise ValueError(f"out must be int32[{n_cells}] on {dev}")
+    mats = _flat_views(out, cps)
     if dev.type == "cpu":
         kw = {k: v for k, v in tables.statics.items() if k != "unk_id"}
-        out = []
-        for cp in cps:
-            bid, blen = word_match(cp, tables.k1, tables.k2, tables.tid, width=int(cp.shape[1]), **kw)
-            out.append((bid.to(torch.int32), blen.to(torch.int32)))
-        return out
-    units, widths = _check_units(cps, dev)
-    # One int32[2, U, W] per bucket: best_id in [0], best_len in [1].
-    outs = [torch.empty((2, u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
-    if sum(units) == 0:
-        return [(o[0], o[1]) for o in outs]
+        for cp, m in zip(cps, mats):
+            w = int(cp.shape[1])
+            m.copy_(pack_matches(*word_match(cp, tables.k1, tables.k2, tables.tid, width=w, **kw), w))
+        return mats
+    units, widths = _check_split(cps, dev)
+    if n_cells == 0:
+        return mats
     lib = build()
     mode = ctypes.c_int(-1)
     rc = lib.wp_word_match(
         *_unit_args(cps, units, widths),
-        _arrays(ctypes.c_void_p, [o[0].data_ptr() for o in outs]),
-        _arrays(ctypes.c_void_p, [o[1].data_ptr() for o in outs]),
+        _arrays(ctypes.c_void_p, [m.data_ptr() for m in mats]),
         tables.slot_image.data_ptr(),
         tables.off_words,
         int(tables.slot_image.shape[0]),
@@ -316,46 +344,44 @@ def word_match_multi(cps, tables: DeviceTables, *, global_keys: bool = False) ->
     if rc != 0:
         raise RuntimeError(f"word_match kernel launch failed: CUDA error {rc}")
     if mode.value >= 0:
-        word_match_multi.launches += 1
+        word_match_packed.launches += 1
         if mode.value == 1:
-            word_match_multi.launches_global += 1
-    return [(o[0], o[1]) for o in outs]
+            word_match_packed.launches_global += 1
+    return mats
 
 
-word_match_multi.launches = 0
-word_match_multi.launches_global = 0
+word_match_packed.launches = 0
+word_match_packed.launches_global = 0
 
-
-def word_commit_multi(
-    cps, matches, *, max_len: int, unk_id: int, counts: torch.Tensor | None = None
+def word_commit_packed(
+    cps, packed, *, max_len: int, unk_id: int, counts: torch.Tensor | None = None
 ) -> list[torch.Tensor]:
-    """Every bucket's emit matrix int32[U, W] from its matches (best_id,
-    best_len), in ONE kernel launch on the card: the greedy walk, the
-    whole-word UNK rollback and the emit.  `matches` are typically the
-    max-combined matches of every vocab partition; `max_len` and `unk_id`
-    are the tables' statics.  `counts` as for word_match_commit_multi."""
+    """Every bucket's emit matrix int32[U, W] from its packed matches
+    int32[U, W] (typically the max-combined matches of every vocab
+    partition), in ONE kernel launch on the card: the greedy walk, the
+    whole-word UNK rollback and the emit.  `max_len` and `unk_id` are the
+    tables' statics; `counts` as for word_match_commit_multi."""
     cps = list(cps)
-    matches = list(matches)
-    if len(matches) != len(cps):
-        raise ValueError(f"{len(matches)} match pairs for {len(cps)} buckets")
+    packed = list(packed)
+    if len(packed) != len(cps):
+        raise ValueError(f"{len(packed)} match matrices for {len(cps)} buckets")
     dev = cps[0].device if cps else torch.device("cpu")
-    for cp, (bid, blen) in zip(cps, matches):
-        if cp.dim() != 2 or bid.shape != cp.shape or blen.shape != cp.shape:
+    for cp, m in zip(cps, packed):
+        if cp.dim() != 2 or m.shape != cp.shape:
             raise ValueError("matches must have their unit matrix's [U, W] shape")
-        if bid.device != cp.device or blen.device != cp.device or cp.device != dev:
+        if m.device != cp.device or cp.device != dev:
             raise ValueError(f"unit matrices and matches must all be on {dev}")
     if dev.type == "cpu":
-        emits = [
-            word_commit(cp, bid, blen, width=int(cp.shape[1]), max_len=max_len, unk_id=unk_id)
-            for cp, (bid, blen) in zip(cps, matches)
-        ]
+        emits = []
+        for cp, m in zip(cps, packed):
+            w = int(cp.shape[1])
+            emits.append(word_commit(cp, *unpack_matches(m), width=w, max_len=max_len, unk_id=unk_id))
         _fill_counts(counts, emits)
         return emits
-    units, widths = _check_units(cps, dev)
-    for bid, blen in matches:
-        for m in (bid, blen):
-            if m.dtype != torch.int32 or not m.is_contiguous():
-                raise ValueError("matches must be contiguous int32")
+    units, widths = _check_split(cps, dev)
+    for m in packed:
+        if m.dtype != torch.int32 or not m.is_contiguous():
+            raise ValueError("packed matches must be contiguous int32")
     outs = [torch.empty((u, w), dtype=torch.int32, device=dev) for u, w in zip(units, widths)]
     counts = _counts_for(counts, sum(units), dev)
     if sum(units) == 0:
@@ -364,8 +390,7 @@ def word_commit_multi(
     mode = ctypes.c_int(-1)
     rc = lib.wp_word_commit(
         *_unit_args(cps, units, widths),
-        _arrays(ctypes.c_void_p, [bid.data_ptr() for bid, _ in matches]),
-        _arrays(ctypes.c_void_p, [blen.data_ptr() for _, blen in matches]),
+        _arrays(ctypes.c_void_p, [m.data_ptr() for m in packed]),
         _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
         max_len,
         unk_id,
@@ -376,11 +401,35 @@ def word_commit_multi(
     if rc != 0:
         raise RuntimeError(f"word_commit kernel launch failed: CUDA error {rc}")
     if mode.value >= 0:
-        word_commit_multi.launches += 1
+        word_commit_packed.launches += 1
     return outs
 
 
-word_commit_multi.launches = 0
+word_commit_packed.launches = 0
+
+
+def word_match_multi(cps, tables: DeviceTables, *, global_keys: bool = False) -> list[tuple]:
+    """word_match_packed with the JAX word_match's outputs: every bucket's
+    (best_id, best_len), each int32[U, W], -1 and 0 where nothing hits."""
+    return [unpack_matches(m) for m in word_match_packed(cps, tables, global_keys=global_keys)]
+
+
+def word_commit_multi(
+    cps, matches, *, max_len: int, unk_id: int, counts: torch.Tensor | None = None
+) -> list[torch.Tensor]:
+    """word_commit_packed on the JAX word_commit's inputs: every bucket's
+    matches (best_id, best_len), each [U, W], ids in [0, 2^24) where
+    best_len > 0."""
+    cps = list(cps)
+    matches = list(matches)
+    if len(matches) != len(cps):
+        raise ValueError(f"{len(matches)} match pairs for {len(cps)} buckets")
+    packed = []
+    for cp, (bid, blen) in zip(cps, matches):
+        if cp.dim() != 2 or bid.shape != cp.shape or blen.shape != cp.shape:
+            raise ValueError("matches must have their unit matrix's [U, W] shape")
+        packed.append(pack_matches(bid, blen, int(cp.shape[1])))
+    return word_commit_packed(cps, packed, max_len=max_len, unk_id=unk_id, counts=counts)
 
 
 def compact_emits(emits, cap: int) -> torch.Tensor:

@@ -18,10 +18,13 @@ make_mesh(n_data, n_vocab), the ("data", "vocab") mesh of the JAX
 version, of any length, 1 x 1 included): the candidate rows of the
 length tables are partitioned over the ranks of a vocab group
 (shard_word_tables); rank (d, v) runs the match kernel on its slice
-against partition v, the partial (id, len) matches combine with two
-all_reduce(MAX) (vocab_parallel.combine_partial_matches; exact, because a
-token lives in exactly one partition), and the commit kernel runs on the
-combined matches, replicated along the vocab axis.
+against partition v, the partial matches, one packed int32 per position
+((len << 24) | id, 0 for none: ops/word_kernel.pack_matches), combine with
+ONE all_reduce(MAX) (the longest length, then the largest id: exact,
+because a token lives in exactly one partition; the JAX version's two
+pmax give the same), and the commit kernel runs on the combined matches,
+replicated along the vocab axis.  A 2-D dispatch issues two collectives:
+that all_reduce and the gather.
 
 SPMD: every rank of the grid calls encode_bytes with the same bytes, so
 every rank's pipeline cuts the same chunks and dispatches the same
@@ -42,7 +45,6 @@ from ..core.length_tables import LengthTables, load_length_tables
 from ..engine_word import WordEncoder, _narrow
 from ..ops import word_kernel_cuda as wk
 from .sharding import ProcessGrid, make_mesh, rank_device
-from .vocab_parallel import combine_partial_matches
 
 
 def data_slices(mats, mesh: ProcessGrid) -> list[np.ndarray]:
@@ -160,24 +162,18 @@ def word_encode_2d_parallel(cps, tables, *, mesh: ProcessGrid):
     """2-D word engine, called by every rank of the grid with its data
     slice of every bucket (data_slices) and its vocab partition's tables
     (partition_tables, loaded on this rank's device): one match kernel
-    launch against the partition, the max-combine over the vocab group,
-    one commit kernel launch on the combined matches, then the gather over
-    the data group.  Returns what word_encode_data_parallel returns."""
-    matches = wk.word_match_multi(cps, tables)
-    best_id, best_len = combine_partial_matches(
-        torch.cat([m[0].reshape(-1) for m in matches]),
-        torch.cat([m[1].reshape(-1) for m in matches]),
-        mesh.vocab_group,
-    )
-    combined, off = [], 0
-    for cp in cps:
-        k = cp.shape[0] * cp.shape[1]
-        combined.append((best_id[off : off + k].view(cp.shape), best_len[off : off + k].view(cp.shape)))
-        off += k
-    n = sum(int(cp.shape[0]) for cp in cps)
-    counts = torch.empty(n, dtype=torch.int32, device=tables.packed.device)
-    emits = wk.word_commit_multi(
-        cps, combined, max_len=tables.max_len, unk_id=tables.unk_id, counts=counts
+    launch against the partition into one flat buffer of packed matches,
+    their max over the vocab group in one all_reduce, one commit kernel
+    launch on the combined matches, then the gather over the data group.
+    Returns what word_encode_data_parallel returns."""
+    dev = tables.packed.device
+    flat = torch.empty(sum(int(cp.shape[0]) * int(cp.shape[1]) for cp in cps),
+                       dtype=torch.int32, device=dev)
+    packed = wk.word_match_packed(cps, tables, out=flat)
+    dist.all_reduce(flat, op=dist.ReduceOp.MAX, group=mesh.vocab_group)
+    counts = torch.empty(sum(int(cp.shape[0]) for cp in cps), dtype=torch.int32, device=dev)
+    emits = wk.word_commit_packed(
+        cps, packed, max_len=tables.max_len, unk_id=tables.unk_id, counts=counts
     )
     return _gather_slices(emits, counts, mesh)
 
