@@ -122,7 +122,22 @@ JAX package.  Phases, each fatal on failure:
     and the compaction once per dispatch and no fused kernel.  The
     torch.distributed collectives are counted: one per 1-D dispatch (the
     gather), two per 2-D dispatch (the packed matches' all_reduce and the
-    gather).
+    gather);
+13. dry run: wordpiece_tpu_torch.dryrun.dryrun_multichip on every card,
+    one nccl rank (a process of its own) a card, each rank bound to its
+    card: the stream engine on the demo text (1-D; a (n/2) x 2 grid from
+    four cards), the 1-D word engine (and the (n/2) x 2 grid), the 1-D
+    word engine on a 4.5 MB corpus with an 8k vocab and a 5,000-codepoint
+    space-free run, and MultiHostWordEncoder on each rank's byte range of
+    it.  Each rank holds every path's ids to the native oracle, and its
+    kernel launches to one a dispatch (the probe one an encode), with
+    every count set to 0 just before the path; verify_repairs and
+    device_fallbacks must be 0 and the 1-D word path must issue one
+    collective a dispatch.  Then entry()'s one-dispatch step on the card,
+    exact against the plain word_match_commit.  The kernels line gives
+    each kernel's launches in the dry run (rank 0's, every path summed)
+    as `dryrun_launches`: the fused kernel, the compaction and the probe
+    launch on one card, the split kernels only from four.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -1236,15 +1251,12 @@ def word_sharded_phases(corpora: dict) -> dict:
     import numpy as np
     import torch.distributed as dist
 
-    from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.dryrun import KERNELS, counting_collectives
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.parallel.multihost import MultiHostWordEncoder
     from wordpiece_tpu_torch.parallel.sharding import make_mesh
     from wordpiece_tpu_torch.parallel.word_sharding import ShardedWordEncoder
 
-    counters = {"word_match_commit": wk.word_match_commit_multi,
-                "compact": wk.compact_from_counts, "word_match": wk.word_match_packed,
-                "word_commit": wk.word_commit_packed, "match_positions": mf.match_positions}
     data, vocab, want = corpora["en"]
     # Each path: its encoder, the kernels it launches once per dispatch,
     # and the collectives it issues per dispatch (None: per encode).
@@ -1256,24 +1268,11 @@ def word_sharded_phases(corpora: dict) -> dict:
         "multihost": (lambda: MultiHostWordEncoder(vocab, device="cuda"),
                       {"word_match_commit", "compact"}, None),
     }
-    collectives = {}  # torch.distributed function name -> calls
-
-    def counting(name, fn):
-        def call(*args, **kwargs):
-            collectives[name] = collectives.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        return call
-
-    wrapped = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
-               "reduce_scatter", "reduce_scatter_tensor", "all_to_all", "barrier")
-    originals = {name: getattr(dist, name) for name in wrapped}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
                                 timeout=timedelta(seconds=120))
         try:
-            for name in wrapped:
-                setattr(dist, name, counting(name, originals[name]))
             for name, (make, launched, per_dispatch) in paths.items():
                 enc = make()
                 inner = enc._inner
@@ -1286,19 +1285,18 @@ def word_sharded_phases(corpora: dict) -> dict:
                     return orig(mats)
 
                 inner._dispatch_buckets = counted
-                for c in counters.values():
+                for c in KERNELS.values():
                     c.launches = 0
                 wk.word_match_commit_multi.launches_global = wk.word_match_packed.launches_global = 0
-                collectives.clear()
-                if name == "multihost":
-                    got, total = enc.encode_local_bytes(data)
-                else:
-                    got = enc.encode_bytes(data)
-                    total = int(got.shape[0])
-                launches = {k: c.launches for k, c in counters.items()}
+                with counting_collectives() as issued:
+                    if name == "multihost":
+                        got, total = enc.encode_local_bytes(data)
+                    else:
+                        got = enc.encode_bytes(data)
+                        total = int(got.shape[0])
+                launches = {k: c.launches for k, c in KERNELS.items()}
                 launches_global = {"word_match_commit": wk.word_match_commit_multi.launches_global,
                                    "word_match": wk.word_match_packed.launches_global}
-                issued = dict(collectives)
                 ok = got.dtype == np.int32 and np.array_equal(got, want) and total == want.shape[0]
                 emit_json({"phase": "word_sharded", "path": name, "corpus": "en_10MB",
                            "backend": dist.get_backend(), "world_size": 1,
@@ -1312,7 +1310,7 @@ def word_sharded_phases(corpora: dict) -> dict:
                 if inner.verify_repairs or inner.device_fallbacks:
                     raise AssertionError(f"{name}: {inner.verify_repairs} units repaired on the "
                                          f"host, {inner.device_fallbacks} fetches rescued")
-                expected = {k: (dispatches if k in launched else 0) for k in counters}
+                expected = {k: (dispatches if k in launched else 0) for k in KERNELS}
                 if dispatches < 1 or launches != expected:
                     raise AssertionError(f"{name}: launches {launches}, expected {expected}")
                 if per_dispatch is not None and sum(issued.values()) != per_dispatch * dispatches:
@@ -1321,10 +1319,41 @@ def word_sharded_phases(corpora: dict) -> dict:
                 out[name] = {"launches": launches, "launches_global": launches_global,
                              "dispatches": dispatches, "collectives": issued}
         finally:
-            for name in wrapped:
-                setattr(dist, name, originals[name])
             dist.destroy_process_group()
     return out
+
+
+def dryrun_phase() -> dict:
+    """Phase 13 (module docstring).  Returns each kernel's launches in the
+    dry run, summed over rank 0's paths."""
+    import torch
+
+    from wordpiece_tpu_torch import dryrun
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(n, device="cuda")
+    seconds = time.perf_counter() - t0
+    lines = {ln["path"]: ln for ln in out["lines"]}
+    for path, ln in lines.items():
+        if not ln["equal_oracle"] or ln["backend"] != "nccl":
+            raise AssertionError(f"dry run {path}: {ln}")
+        if ln["verify_repairs"] or ln["device_fallbacks"]:
+            raise AssertionError(f"dry run {path}: repaired or rescued on the host")
+    if lines["word_1d"]["collectives_per_dispatch"] != 1:
+        raise AssertionError(f"dry run word_1d: {lines['word_1d']['collectives']} collectives")
+    launches = {k: sum(ln["launches"][k] for ln in lines.values()) for k in dryrun.KERNELS}
+    fn, (units, tables) = dryrun.entry()
+    got = fn(units, tables)
+    torch.cuda.synchronize()
+    err = exact_err(got, plain_emit_of(units, tables), "entry step")
+    emit_json({"phase": "dryrun_done", "world_size": n, "seconds": seconds,
+               "paths": list(lines), "launches": launches,
+               "ranks_equal_oracle": [all(r["equal_oracle"] for r in recs) for recs in out["ranks"]],
+               "rank_devices": [recs[0]["device"] for recs in out["ranks"]],
+               "entry": {"units": list(units.shape), "device": str(units.device),
+                         "emitted": int((got != -2).sum()), "max_abs_err": err}})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1914,6 +1943,9 @@ def main(argv=None) -> int:
                          np.random.default_rng(2027))
     sharded = word_sharded_phases(corpora)
 
+    # ---- 13. the dry run ----------------------------------------------------
+    dry = dryrun_phase()
+
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]
     emit_json({"kernels": [
@@ -1930,6 +1962,7 @@ def main(argv=None) -> int:
             "bound_ms": t_en["match"]["bound_ms"],
             "bound_by": t_en["match"]["bound_by"],
             "library_ms": None,
+            "dryrun_launches": dry["word_match_commit"],
         },
         {
             "name": "compact_from_counts",
@@ -1944,8 +1977,9 @@ def main(argv=None) -> int:
             "bound_ms": t_en["compact"]["bound_ms"],
             "bound_by": t_en["compact"]["bound_by"],
             "library_ms": t_en["compact"]["library_ms"],
+            "dryrun_launches": dry["compact"],
         },
-        stream_kernel,
+        {**stream_kernel, "dryrun_launches": dry["match_positions"]},
         *({
             "name": name,
             "route": "cuda",
@@ -1959,6 +1993,7 @@ def main(argv=None) -> int:
             "bound_ms": split["timing"][part]["bound_ms"],
             "bound_by": split["timing"][part]["bound_by"],
             "library_ms": None,
+            "dryrun_launches": dry[name],
         } for name, part, replaces, layout in (
             ("word_match", "match", "wordpiece_tpu/ops/word_kernel.py:77",
              f"{'global' if sharded['grid_2d_1x1']['launches_global']['word_match'] else 'shared'}"

@@ -374,3 +374,23 @@ def test_device_role_auto_cuda_error_propagates():
     with pytest.raises(RuntimeError, match="CUDA error"):
         enc.encode_bytes(corpus)
     assert enc.device_fallbacks == 0
+
+
+def test_encode_codepoints_equal_jax():
+    """WordEncoder.encode_codepoints, the JAX package's compatibility entry
+    (codepoints re-encoded to UTF-8, then encode_bytes), equals the JAX
+    WordEncoder's on a seeded text with CJK and astral codepoints, and the
+    native oracle."""
+    rng = np.random.default_rng(31)
+    pool = list("abcdefgh") + ["中", "文", "𠀀", "𝔘", "é"]
+    words = ["".join(rng.choice(pool, size=int(rng.integers(1, 10)))) for _ in range(400)]
+    text = " ".join(words) + " 中文 mix-ed, 𠀀x 𝔘"
+    lines = sorted({w[:2] for w in words} | {"##" + w[2:4] for w in words if len(w) > 3}
+                   | set(pool) | {"##" + c for c in pool} | {"mix", "##ed", "-", ",", "[UNK]"})
+    cps = np.array([ord(c) for c in text], dtype=np.int32)
+    assert (cps >= 0x10000).any() and ((cps >= 0x4E00) & (cps < 0xA000)).any()
+    got = enc_cpu(parse_vocab(lines)).encode_codepoints(cps)
+    want = JaxWordEncoder(jax_parse_vocab(lines)).encode_codepoints(cps)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, oracle_ids(parse_vocab(lines), text.encode()))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from collections import Counter
 
 import numpy as np
@@ -22,6 +23,15 @@ CACHE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", ".bench_cache")
 def _cache_path(name: str) -> str:
     os.makedirs(CACHE_DIR, exist_ok=True)
     return os.path.join(CACHE_DIR, name)
+
+
+def _write_cache(path: str, data: bytes) -> None:
+    """Write a cache entry whole or not at all (a temporary file, then
+    os.replace), so a concurrent reader never sees part of it."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 def make_word_list(rng: np.random.Generator, n_words: int = 20000) -> list[str]:
@@ -99,8 +109,7 @@ def make_corpus(size_bytes: int, seed: int = 17, lang: str = "en") -> bytes:
     # Don't cut mid-codepoint: trim trailing continuation bytes.
     while data and (data[-1] & 0xC0) == 0x80:
         data = data[:-1]
-    with open(path, "wb") as f:
-        f.write(data)
+    _write_cache(path, data)
     return data
 
 
@@ -193,8 +202,7 @@ def make_vocab_bert(corpus: bytes, vocab_size: int = 28996, seed: int = 17) -> l
             break
         vocab.append(piece)
         seen.add(piece)
-    with open(path, "w", encoding="utf-8") as f:
-        f.write("\n".join(vocab))
+    _write_cache(path, "\n".join(vocab).encode("utf-8"))
     return vocab
 
 
@@ -237,6 +245,5 @@ def make_vocab(corpus: bytes, vocab_size: int = 30000, seed: int = 17) -> list[s
             seen.add(piece)
         if len(vocab) >= vocab_size:
             break
-    with open(path, "w", encoding="utf-8") as f:
-        f.write("\n".join(vocab))
+    _write_cache(path, "\n".join(vocab).encode("utf-8"))
     return vocab

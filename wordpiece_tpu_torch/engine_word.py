@@ -38,6 +38,7 @@ import threading
 import numpy as np
 import torch
 
+from .core import unicode as uni
 from .core.length_tables import LengthTables, build_length_tables, load_length_tables
 from .core.vocab import Vocabulary
 from .ops import word_kernel_cuda as wk
@@ -487,6 +488,11 @@ class WordEncoder:
         finally:
             if not self.cache:
                 session.close()
+
+    def encode_codepoints(self, cps: np.ndarray) -> np.ndarray:
+        """Compatibility entry (the JAX package's): cps are re-encoded to
+        UTF-8 and go to encode_bytes."""
+        return self.encode_bytes(uni.encode_utf8(np.asarray(cps, dtype=np.uint32)))
 
     # Small first-seen batches encode on the native host oracle instead of
     # paying a device round trip.  Applied only after the session's first

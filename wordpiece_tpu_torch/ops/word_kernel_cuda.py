@@ -23,7 +23,8 @@ or imported from CUDA at module import.
 Each wrapper takes its kernel's plain version only for tensors that lie
 on the CPU (ops/word_kernel.py for the match, compact_emits for the
 compaction).  For a CUDA tensor it launches the kernel on the current
-stream, or raises; it never falls back.  Counts of launches:
+stream of the tensors' card, made the current device around the launch,
+or raises; it never falls back.  Counts of launches:
 `word_match_commit_multi.launches` (all launches; one per dispatch),
 `word_match_commit_multi.launches_global` (those that read the slot
 image, the list offsets and key fingerprints, from global memory instead
@@ -206,23 +207,24 @@ def word_match_commit_multi(
         return outs
     lib = build()
     mode = ctypes.c_int(-1)
-    rc = lib.wp_word_match_commit(
-        *_unit_args(cps, units, widths),
-        _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
-        tables.slot_image.data_ptr(),
-        tables.off_words,
-        int(tables.slot_image.shape[0]),
-        tables.slot_keys.data_ptr(),
-        tables.lane_salts_t.data_ptr(),
-        tables.max_len,
-        tables.mult1 & 0xFFFFFFFF,
-        tables.mult2 & 0xFFFFFFFF,
-        tables.unk_id,
-        counts.data_ptr(),
-        int(global_keys),
-        ctypes.byref(mode),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        rc = lib.wp_word_match_commit(
+            *_unit_args(cps, units, widths),
+            _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+            tables.slot_image.data_ptr(),
+            tables.off_words,
+            int(tables.slot_image.shape[0]),
+            tables.slot_keys.data_ptr(),
+            tables.lane_salts_t.data_ptr(),
+            tables.max_len,
+            tables.mult1 & 0xFFFFFFFF,
+            tables.mult2 & 0xFFFFFFFF,
+            tables.unk_id,
+            counts.data_ptr(),
+            int(global_keys),
+            ctypes.byref(mode),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"word_match_commit kernel launch failed: CUDA error {rc}")
     if mode.value >= 0:  # -1: every bucket was empty, nothing launched
@@ -326,21 +328,22 @@ def word_match_packed(
         return mats
     lib = build()
     mode = ctypes.c_int(-1)
-    rc = lib.wp_word_match(
-        *_unit_args(cps, units, widths),
-        _arrays(ctypes.c_void_p, [m.data_ptr() for m in mats]),
-        tables.slot_image.data_ptr(),
-        tables.off_words,
-        int(tables.slot_image.shape[0]),
-        tables.slot_keys.data_ptr(),
-        tables.lane_salts_t.data_ptr(),
-        tables.max_len,
-        tables.mult1 & 0xFFFFFFFF,
-        tables.mult2 & 0xFFFFFFFF,
-        int(global_keys),
-        ctypes.byref(mode),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        rc = lib.wp_word_match(
+            *_unit_args(cps, units, widths),
+            _arrays(ctypes.c_void_p, [m.data_ptr() for m in mats]),
+            tables.slot_image.data_ptr(),
+            tables.off_words,
+            int(tables.slot_image.shape[0]),
+            tables.slot_keys.data_ptr(),
+            tables.lane_salts_t.data_ptr(),
+            tables.max_len,
+            tables.mult1 & 0xFFFFFFFF,
+            tables.mult2 & 0xFFFFFFFF,
+            int(global_keys),
+            ctypes.byref(mode),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"word_match kernel launch failed: CUDA error {rc}")
     if mode.value >= 0:
@@ -388,16 +391,17 @@ def word_commit_packed(
         return outs
     lib = build()
     mode = ctypes.c_int(-1)
-    rc = lib.wp_word_commit(
-        *_unit_args(cps, units, widths),
-        _arrays(ctypes.c_void_p, [m.data_ptr() for m in packed]),
-        _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
-        max_len,
-        unk_id,
-        counts.data_ptr(),
-        ctypes.byref(mode),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        rc = lib.wp_word_commit(
+            *_unit_args(cps, units, widths),
+            _arrays(ctypes.c_void_p, [m.data_ptr() for m in packed]),
+            _arrays(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+            max_len,
+            unk_id,
+            counts.data_ptr(),
+            ctypes.byref(mode),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"word_commit kernel launch failed: CUDA error {rc}")
     if mode.value >= 0:
@@ -483,6 +487,9 @@ def compact_from_counts(emits, fused: torch.Tensor, cap: int) -> torch.Tensor:
         raise ValueError(f"compact vector must be int32[{1 + n + cap}]")
     for w in widths:
         _check_position_field(w)
+    for e in emits:  # the kernel's contract, held on the CPU too
+        if e.device != fused.device or e.dtype != torch.int32 or not e.is_contiguous():
+            raise ValueError("emit matrices must be contiguous int32 on the vector's device")
     if fused.device.type == "cpu":
         fused.copy_(compact_emits(emits, cap))
         return fused
@@ -490,9 +497,6 @@ def compact_from_counts(emits, fused: torch.Tensor, cap: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {fused.device}")
     if not 1 <= len(emits) <= MAX_BUCKETS:
         raise ValueError(f"{len(emits)} buckets: the kernel takes 1..{MAX_BUCKETS}")
-    for e in emits:
-        if e.device != fused.device or e.dtype != torch.int32 or not e.is_contiguous():
-            raise ValueError("emit matrices must be contiguous int32 on the vector's device")
     if fused.data_ptr() % 16:
         raise ValueError("the compact vector must be 16-byte aligned")
     # Scratch of this call alone, a sum per chunk: two calls on two

@@ -6,11 +6,11 @@ a memcpy concat, src/fast.cpp:125-137).  Here each process of a
 torch.distributed group:
 
  - forms the group with initialize_distributed (a wrapper of
-   torch.distributed.init_process_group);
+   torch.distributed.init_process_group that binds the rank's card first);
  - owns a whitespace-safe byte shard of the corpus (file_shard_bounds:
    the multi-process analogue of the reference's space-snapped chunking,
    src/fast.cpp:113-115), segments and dedupes it with the native
-   runtime, and encodes it on its own card, cuda:(rank % device_count);
+   runtime, and encodes it on its own card, cuda:rank_card(rank);
  - keeps its own id stream (the concatenation of the processes' streams
    in rank order is the whole corpus's);
  - sums the global id count with one all_reduce(SUM) over the data group.
@@ -39,17 +39,23 @@ import torch.distributed as dist
 
 from ..core.unicode import find_space_cut
 from ..engine_word import WordEncoder, resolve_device
-from .sharding import ProcessGrid, make_mesh, rank_device
+from .sharding import ProcessGrid, make_mesh, rank_card, rank_device
 
 
 def initialize_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    *,
+    device=None,
 ) -> None:
-    """Form the process group (torch.distributed.init_process_group), with
-    nccl where CUDA is available, else gloo.  No-op for one process with
-    no coordinator, and when a group already exists.
+    """Form the process group (torch.distributed.init_process_group): nccl
+    for device "cuda", gloo for "cpu"; without `device`, nccl where CUDA
+    is available, else gloo.  For nccl the rank's card is bound first
+    (torch.cuda.set_device, and device_id= of the group): LOCAL_RANK, else
+    rank % device_count (parallel/sharding.rank_card), so that the
+    communicator, its barriers and rank_device all use that card.  No-op
+    for one process with no coordinator, and when a group already exists.
     `coordinator_address` is "host:port" (or any init_method URL); without
     it the group forms from the environment (env://)."""
     if coordinator_address is None and num_processes in (None, 1):
@@ -62,11 +68,20 @@ def initialize_distributed(
         init = coordinator_address
     else:
         init = f"tcp://{coordinator_address}"
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    kwargs = {}
+    if resolve_device(device).type == "cuda":
+        rank = process_id if process_id is not None else int(os.environ["RANK"])
+        card = torch.device("cuda", rank_card(rank))
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(
-        "nccl" if torch.cuda.is_available() else "gloo",
+        "nccl" if kwargs else "gloo",
         init_method=init,
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id,
+        **kwargs,
     )
 
 

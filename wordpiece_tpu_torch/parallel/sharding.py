@@ -17,14 +17,15 @@ shards the probe table (parallel/vocab_parallel.py): the ranks of one data
 row each probe their table partition and max-combine the matches.
 
 JAX's single-controller call becomes SPMD: every rank calls with the same
-codepoints.  On CUDA every rank runs on cuda:(rank % device_count) with the
-nccl backend; on the CPU with gloo.  A CUDA encoder never falls back to
-gloo or to the CPU.
+codepoints.  On CUDA every rank runs on cuda:rank_card(rank) (LOCAL_RANK,
+else rank % device_count) with the nccl backend; on the CPU with gloo.  A
+CUDA encoder never falls back to gloo or to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import partial
 
 import numpy as np
@@ -88,16 +89,23 @@ def make_mesh(n_data: int | None = None, n_vocab: int | None = None, group=None)
     return ProcessGrid(n_data, n_vocab, ranks, d, v, data_groups[v], vocab_groups[d], axes)
 
 
+def rank_card(rank: int) -> int:
+    """This process's card, given its global rank: LOCAL_RANK where the
+    launcher sets it (torchrun), else rank % device_count (one host)."""
+    local = os.environ.get("LOCAL_RANK")
+    return int(local) if local is not None else rank % torch.cuda.device_count()
+
+
 def rank_device(device) -> torch.device:
-    """This rank's device: cuda:(rank % device_count) with the nccl backend
-    for "cuda", the CPU with gloo for "cpu".  Raises on any other pairing."""
+    """This rank's device: cuda:rank_card(rank) with the nccl backend for
+    "cuda", the CPU with gloo for "cpu".  Raises on any other pairing."""
     dev = resolve_device(device)
     backend = dist.get_backend()
     if dev.type == "cuda":
         if backend != "nccl":
             raise RuntimeError(f"a CUDA encoder needs the nccl backend, not {backend}")
         if dev.index is None:
-            dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+            dev = torch.device("cuda", rank_card(dist.get_rank()))
         return dev
     if backend != "gloo":
         raise RuntimeError(f"a CPU encoder needs the gloo backend, not {backend}")

@@ -31,7 +31,7 @@ every rank's pipeline cuts the same chunks and dispatches the same
 buckets; each rank returns the whole id stream.  Every collective of a
 dispatch is issued in WordEncoder._device_step, on the one thread that
 prepares chunks, so all ranks issue them in the same order.  On CUDA every
-rank runs on cuda:(rank % device_count) with the nccl backend, on the CPU
+rank runs on cuda:rank_card(rank) with the nccl backend, on the CPU
 with gloo (parallel/sharding.rank_device); a CUDA encoder never falls back.
 """
 
@@ -75,7 +75,9 @@ def _gather_slices(emits, counts: torch.Tensor, mesh: ProcessGrid):
     off = 0
     for e in emits:
         r, w = e.shape
-        out_emits.append(whole[:, off : off + r * w].reshape(mesh.n_data * r, w))
+        # The compaction kernel reads contiguous rows; with one row a slice
+        # (r == 1) the reshape is a view whose rows stride over the parts.
+        out_emits.append(whole[:, off : off + r * w].reshape(mesh.n_data * r, w).contiguous())
         off += r * w
     for e in emits:
         r = e.shape[0]
