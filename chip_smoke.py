@@ -9,9 +9,11 @@ JAX package.  Phases, each fatal on failure:
 
  1. the card: name and power limit from nvidia-smi;
  2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel, the
-    compaction kernel and the split match and commit kernels, one library)
-    and csrc/match_fast.cu (the fast-stream engine's probe), both at once;
-    ptxas' registers, shared memory and spills are printed;
+    compaction kernel and the split match and commit kernels, one library),
+    csrc/match_fast.cu (the fast-stream engine's probe),
+    csrc/text_features.cu (the features kernel) and csrc/commit.cu (the
+    commit kernels), all four at once; ptxas' registers, shared memory and
+    spills are printed for each;
  3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
     multilingual, astral-plane, UNK-heavy, empty rows; a row count that
     ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
@@ -31,8 +33,8 @@ JAX package.  Phases, each fatal on failure:
     through the user entry points (ids must equal the native oracle), 3 MB
     of en on a char-level vocab (past the compact cap: the full-emit
     fetch) and every tests/golden/*.npz stream (byte-identical); both
-    kernels must have launched once per dispatch, and device_fallbacks
-    and verify_repairs must be 0;
+    kernels must have launched once per dispatch (the features and commit
+    kernels not at all), and device_fallbacks and verify_repairs must be 0;
  5. numbers: at the first dispatch's bucket shapes of each of en/ru/ja/zh,
     both kernels are held equal to their plain versions again, then timed
     by CUDA events (the kernels behind a spin kernel, so that the events
@@ -54,15 +56,20 @@ JAX package.  Phases, each fatal on failure:
     (compact-cap overflow: full_fetches > 0), the prefix-doubling fallback
     (a 5,000-symbol vocab with 49-90-codepoint tokens: nk > 24) and the
     MAX_SLOT_LEN scalar route (a 100-codepoint token: no device batch),
-    each against the oracle; the word kernels must not have launched;
+    each against the oracle; the features and commit kernels must have
+    been called once per device batch, the word kernels and the probe not
+    at all;
  7. linear numbers: the 10 MB en rate (min and median of 5) with its
     stage breakdown; one encode under torch.profiler (device time by op
     class, launches per batch, busy share); and, at the en first batch's
     shapes, held to the oracle first, the device time of the whole batch
     and of each part (sort, LCP and who-tables, features, sweeps and
-    match, commit) by CUDA events around CUDA graph replays (the capture
-    also proves the batch program has no host sync), the fallback's
-    suffix array and LCP over that batch's S, and each part's bytes bound;
+    match, commit: the last two the hand kernels) by CUDA events around
+    CUDA graph replays (the capture also proves the batch program has no
+    host sync), the fallback's suffix array and LCP over that batch's S,
+    and each part's bytes bound; at that batch's shapes the features and
+    commit kernels are first held to their plain versions (exact, whole
+    outputs, max_chain the batch's np and its longest unit);
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
@@ -73,22 +80,39 @@ JAX package.  Phases, each fatal on failure:
     whose 2^20 tags do not fit in shared memory, and on the 5,000-symbol
     vocab of 49-90-codepoint tokens (max_len past the kernel's 32-bit
     mask: the ascending pass);
+8b. features and commit kernels vs plain: on the card, the features
+    kernel (compute_features) equals compute_features_plain, every field
+    whole with the padding, and the commit kernels (commit_with_positions)
+    equal commit_with_positions_plain (ids, positions, count) on the
+    probe kernel's matches and on random matches inside the window, each
+    at max_chain n and at the longest unit: on the first 1 MB of each of
+    en/ru/ja/zh and the 10 MB en bucket (padded as the engine pads them),
+    and on bench/stream_cases.py's cases (n = 1, 128, around one and two
+    2,048-position tiles, n_valid < n, spacing-free and all-space texts
+    over 4 and 150 tiles, the 2,000-codepoint space-free run, the dry
+    run's 5,000-`q` run, punctuation-dense, CJK and astral-plane text).
+    Integers: tolerance exactly 0;
  9. stream main path: every kernel's launch count is set to 0, then
     make_encoder(vocab, "fast-stream", device="cuda") encodes the 10 MB
     en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
     stream (byte-identical), and the CLI's fast-stream mode runs on one
-    file; the probe kernel must have launched once per encode, with its
-    tags in shared memory (read from its count of global-tag launches),
-    and the word kernels not at all.  Then, in this process, a one-rank nccl group:
-    ShardedFastEncoder on a 1-D grid and encode_2d_parallel on a 1 x 1
-    grid encode 10 MB en, equal to the oracle;
+    file; the features, probe and commit kernels must each have launched
+    once per encode, the probe with its tags in shared memory (read from
+    its count of global-tag launches), and the word kernels not at all.
+    Then, in this process, a one-rank nccl group: ShardedFastEncoder on a
+    1-D grid and encode_2d_parallel on a 1 x 1 grid encode 10 MB en, equal
+    to the oracle, with one launch of each of the three kernels each;
 10. stream numbers: the probe kernel's time by CUDA events behind a spin
     kernel at the en first 1 MB and at the 10 MB en bucket (shared tags,
     and global tags forced), its plain version's time at both, its bound;
-    the 10 MB en fast-stream rate (min
-    and median of 5) with each part's time (host padding, H2D, features,
-    match, commit, count and D2H), the peak of max_memory_allocated, and
-    one encode under torch.profiler (device time by op class, busy share);
+    the features and commit kernels' times the same way at the same two
+    shapes (the commit on the probe's matches at the longest unit), beside
+    their plain versions' and their bounds; the 10 MB en fast-stream rate
+    (min and median of 5) with each part's time (host padding, H2D,
+    features, match, commit, count and D2H), the peak of
+    max_memory_allocated, and one encode under torch.profiler (device time
+    by op class, busy share), which must show the three kernels and no
+    torch scan (cummin) or scatter kernel;
 11. split kernels vs plain: the word kernel split in two for the
     vocab-partitioned path.  The match kernel (word_match_packed: every
     position's longest hit, one packed int32) equals the plain word_match,
@@ -136,8 +160,9 @@ JAX package.  Phases, each fatal on failure:
     collective a dispatch.  Then entry()'s one-dispatch step on the card,
     exact against the plain word_match_commit.  The kernels line gives
     each kernel's launches in the dry run (rank 0's, every path summed)
-    as `dryrun_launches`: the fused kernel, the compaction and the probe
-    launch on one card, the split kernels only from four.
+    as `dryrun_launches`: the fused kernel, the compaction, the features,
+    probe and commit kernels launch on one card, the split kernels only
+    from four.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -506,6 +531,10 @@ def op_class(name: str) -> str:
     low = name.lower()
     if "match_positions" in low:
         return "match_positions kernel"
+    if "text_features_kernel" in low:
+        return "features kernel"
+    if "commit_" in low and "_kernel" in low:
+        return "commit kernels"
     if low.startswith(("memcpy", "memset")):
         return "copies (memcpy)"
     if "sort" in low or "radix" in low:
@@ -674,6 +703,83 @@ def stream_bytes_ops(cp_pad, window, wp, table, st) -> tuple[int, int]:
     return n * 17 + int(table.shape[0]) * 20, 12 * int(lengths) + 5 * int(probes)
 
 
+FEATURE_FIELDS = ("space", "punct", "spacing", "wp", "window", "ss", "wnext")
+
+
+def features_bytes_ops(n: int) -> tuple[int, int]:
+    """Bytes the features must move: the codepoints read (4 a position),
+    the four flags (1 each), window (4) and ss, wnext (4 each, n + 1)
+    written.  Operations: ~30 a position (the classifiers' 22 compares,
+    the window's 5, three running minima)."""
+    return 20 * n + 8, 30 * n
+
+
+def commit_bytes_ops(n: int, rounds: int) -> tuple[int, int]:
+    """Bytes the commit must move: best_id, best_len, window (4 each), ss,
+    wnext (4 each, n + 1), space, wp (1 each) read; ids, positions (4
+    each) and the count written.  Operations: ~18 a position (the step,
+    the seeds, the segments, kill and emit) and 4 a position a doubling
+    round."""
+    return 30 * n + 12, (18 + 4 * rounds) * n
+
+
+def exact_diff(got, want, label: str) -> int:
+    """max |got - want| over tensors that must be equal (dtype, shape and
+    values); raises unless it is 0."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {g.dtype}{list(g.shape)} != {w.dtype}{list(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    if err:
+        raise AssertionError(f"{label}: kernel != plain, max abs err {err}")
+    return err
+
+
+def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: int,
+                          chains: dict, label: str):
+    """The features kernel and the commit kernels against their plain
+    versions on the card, whole outputs with the padding, exactly: the
+    features of x (int32[n]), then the commit of each set of matches
+    {name: (best_id, best_len) or a function of the kernel's features} at
+    each max_chain of `chains`.  Each wrapper must launch once a call.
+    Returns (a report row, the kernel's features)."""
+    import torch
+
+    from wordpiece_tpu_torch.ops import commit as co
+    from wordpiece_tpu_torch.ops import text_features as tfo
+
+    launched = tfo.compute_features.launches
+    got = tfo.compute_features(x, n_valid, max_len)
+    want = tfo.compute_features_plain(x, n_valid, max_len)
+    torch.cuda.synchronize()
+    if tfo.compute_features.launches != launched + 1:
+        raise AssertionError(f"{label}: not one features launch")
+    errs = {"features": exact_diff([getattr(got, f) for f in FEATURE_FIELDS],
+                                   [getattr(want, f) for f in FEATURE_FIELDS],
+                                   f"{label} compute_features")}
+    ids = {}
+    for kind, m in matches.items():
+        best_id, best_len = m(got) if callable(m) else m
+        for cname, max_chain in chains.items():
+            launched = co.commit_with_positions.launches
+            g = co.commit_with_positions(best_id, best_len, got, n_valid, unk_id=unk_id,
+                                         max_chain=max_chain)
+            w = co.commit_with_positions_plain(best_id, best_len, want, n_valid, unk_id=unk_id,
+                                               max_chain=max_chain)
+            torch.cuda.synchronize()
+            if co.commit_with_positions.launches != launched + 1:
+                raise AssertionError(f"{label}: not one commit call")
+            key = f"{kind}_{cname}"
+            errs[f"commit_{key}"] = exact_diff(g, w, f"{label} commit {key}")
+            ids[key] = int(w[2])
+    row = {"input": label, "n": int(x.shape[0]), "n_valid": n_valid, "max_len": max_len,
+           "max_chain": chains, "rounds": {k: co.doubling_rounds(v) for k, v in chains.items()},
+           "ids": ids, "max_abs_err_by_part": errs, "max_abs_err": max(errs.values())}
+    return row, got
+
+
 def stream_parts(enc, data: bytes):
     """One fast-stream encode of `data`, part by part, the steps of
     FastEncoder.encode_codepoints: the host's decode and padding by the
@@ -719,9 +825,10 @@ def stream_parts(enc, data: bytes):
 
 
 def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lines_en: list,
-                  rng) -> dict:
-    """Phases 8-10 (module docstring).  Returns the probe kernel's entry of
-    the kernels line."""
+                  rng) -> tuple:
+    """Phases 8-10 (module docstring).  Returns (the features and commit
+    kernels' errors, times at the 10 MB en bucket and main-path launches;
+    the probe kernel's entry of the kernels line)."""
     from datetime import timedelta
 
     import numpy as np
@@ -730,12 +837,16 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
 
     import wordpiece_tpu_torch as wpt
     from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.bench import stream_cases
     from wordpiece_tpu_torch.cli import main as cli_main
     from wordpiece_tpu_torch.core import unicode as uni
     from wordpiece_tpu_torch.core.vocab import parse_vocab
-    from wordpiece_tpu_torch.engine import index_statics
+    from wordpiece_tpu_torch.engine import index_statics, pad_codepoints
     from wordpiece_tpu_torch.engine_linear import _longest_unit
+    from wordpiece_tpu_torch.ops import commit as co
+    from wordpiece_tpu_torch.ops import commit_cuda
     from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops import text_features as tfo
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.ops.match_fast import load_table
     from wordpiece_tpu_torch.parallel import sharding as sh
@@ -744,6 +855,8 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
 
     mp = mf.match_positions
     mc = wk.word_match_commit_multi
+    fk, ck = tfo.compute_features, co.commit_with_positions
+    stream_wrappers = {"compute_features": fk, "match_positions": mp, "commit_with_positions": ck}
 
     # ---- 8. stream kernel vs plain ------------------------------------------
     encs = {lang: wpt.make_encoder(vocab, "fast-stream", device="cuda")
@@ -795,8 +908,54 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     if row["max_len"] <= 32 or row["matched"] == 0:
         raise AssertionError("the long-token vocab did not take the ascending pass")
 
+    # ---- 8b. features and commit kernels vs plain --------------------------
+    fc_err = 0
+    fc_at = {}  # the two kernels' inputs at the shapes timed in phase 10
+    fc_rng = np.random.default_rng(2028)
+
+    def fc_stream(enc, cps, n_valid, label, bucket):
+        """Both kernels against their plain versions on `cps` padded as the
+        engine pads it (bucket) or as it is, then max_len zeros: the
+        probe kernel's matches and random ones inside the window, at
+        max_chain n and the longest unit."""
+        nonlocal fc_err
+        st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
+        if bucket:
+            cp_np = pad_codepoints(cps, st["max_len"])
+        else:
+            cp_np = np.concatenate([cps, np.zeros(st["max_len"], dtype=np.int32)])
+        cp_pad = torch.from_numpy(cp_np).to(enc.device)
+        n = cp_pad.shape[0] - st["max_len"]
+
+        def probe(f):
+            return mf.match_positions(cp_pad, f.window, f.wp, enc.table, **st)
+
+        def rand(f):
+            got = stream_cases.random_matches(fc_rng, f.window.cpu().numpy())
+            return tuple(torch.from_numpy(a).to(enc.device) for a in got)
+
+        chains = {"n": n, "longest_unit": _longest_unit(cps[:n_valid])}
+        row, _ = features_commit_check(cp_pad[:n], n_valid, st["max_len"],
+                                       {"probe": probe, "random": rand},
+                                       enc._statics["unk_id"], chains, label)
+        fc_err = max(fc_err, row["max_abs_err"])
+        emit_json({"phase": "features_commit_vs_plain", **row})
+        return enc, cp_pad, n, n_valid, chains
+
+    for lang, enc in encs.items():
+        data = corpora[lang][0]
+        cps = uni.decode_utf8(data[: uni.find_space_cut(data, 1_000_000)]).astype(np.int32)
+        got = fc_stream(enc, cps, int(cps.shape[0]), f"{lang}_1MB", True)
+        if lang == "en":
+            fc_at["en_1MB"] = got
+    fc_at["en_10MB"] = fc_stream(encs["en"], cps_en, int(cps_en.shape[0]), "en_10MB", True)
+    cases = {**stream_cases.feature_cases(), **stream_cases.large_cases()}
+    for name, (cps, n_valid, _) in cases.items():
+        fc_stream(special, cps, n_valid, name, False)
+
     # ---- 9. stream main path ------------------------------------------------
     mp.launches = mp.launches_global = 0
+    fk.launches = ck.launches = 0
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
     calls = 0
     for lang, enc in encs.items():
@@ -845,11 +1004,13 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         raise AssertionError("the CLI's fast-stream mode: output differs from the reference")
     launches, launches_global = mp.launches, mp.launches_global
     word = (mc.launches, wk.compact_from_counts.launches)
-    emit_json({"phase": "stream_main_path_launches", "match_positions": launches,
+    stream_launches = {"compute_features": fk.launches, "match_positions": launches,
+                       "commit_with_positions": ck.launches}
+    emit_json({"phase": "stream_main_path_launches", **stream_launches,
                "match_positions_global_tags": mp.launches_global,
                "encode_calls": calls, "word_kernels": list(word)})
-    if launches != calls or launches < 1:
-        raise AssertionError(f"{launches} probe launches for {calls} fast-stream encodes")
+    if set(stream_launches.values()) != {calls} or calls < 1:
+        raise AssertionError(f"{stream_launches} launches for {calls} fast-stream encodes")
     if launches_global:
         raise AssertionError("the bert-scale stream path read its tags from global memory")
     en_st = encs["en"]._statics
@@ -865,7 +1026,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
                                 timeout=timedelta(seconds=120))
         try:
-            before = mp.launches
+            before = {k: c.launches for k, c in stream_wrappers.items()}
             enc = sh.ShardedFastEncoder(corpora["en"][1], device="cuda")
             got = enc.encode_codepoints(cps_en)
             ok_1d = np.array_equal(got, want_en)
@@ -878,7 +1039,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             )
             got2 = sh.assemble_ids(ids.cpu().numpy(), counts.cpu().numpy())
             ok_2d = np.array_equal(got2, want_en) and int(total) == want_en.shape[0]
-            sharded_launches = mp.launches - before
+            sharded_launches = {k: c.launches - before[k] for k, c in stream_wrappers.items()}
             backend = dist.get_backend()
         finally:
             dist.destroy_process_group()
@@ -886,7 +1047,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
                "world_size": 1, "device": str(enc.device), "data_parallel_equal_oracle": ok_1d,
                "grid_2d_equal_oracle": bool(ok_2d), "total": int(total),
                "launches": sharded_launches})
-    if not (ok_1d and ok_2d) or sharded_launches != 2:
+    if not (ok_1d and ok_2d) or set(sharded_launches.values()) != {2}:
         raise AssertionError("the sharded stream encoders on one nccl rank differ from the oracle")
 
     # ---- 10. stream numbers -------------------------------------------------
@@ -910,6 +1071,36 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             raise AssertionError(f"{key}: a time or a bound term was not measured")
     emit_json({"phase": "stream_kernel_time", "card": card, "launches_per_encode": launches / calls,
                **timing})
+
+    # The features and commit kernels at the same shapes, the commit on the
+    # probe kernel's matches at the main path's max_chain (the longest unit).
+    fc_timing = {}
+    for key, (enc, cp_pad, n, n_valid, chains) in fc_at.items():
+        st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
+        unk_id, max_chain, x = enc._statics["unk_id"], chains["longest_unit"], cp_pad[:n]
+        feats = fk(x, n_valid, st["max_len"])
+        best = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
+        rounds = co.doubling_rounds(max_chain)
+        row = {"n": n, "n_valid": n_valid, "max_chain": max_chain, "rounds": rounds,
+               "commit_kernel_launches_per_call": rounds + commit_cuda.EXTRA_LAUNCHES}
+        for part, k_fn, p_fn, (nbytes, ops) in (
+            ("features", lambda: fk(x, n_valid, st["max_len"]),
+             lambda: tfo.compute_features_plain(x, n_valid, st["max_len"]),
+             features_bytes_ops(n)),
+            ("commit", lambda: ck(*best, feats, n_valid, unk_id=unk_id, max_chain=max_chain),
+             lambda: co.commit_with_positions_plain(*best, feats, n_valid, unk_id=unk_id,
+                                                    max_chain=max_chain),
+             commit_bytes_ops(n, rounds)),
+        ):
+            k_ms = device_ms(k_fn, 50)
+            p_ms = cuda_ms(p_fn, 3)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            row[part] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "ops": ops,
+                         "bound_ms": b_ms, "bound_by": b_by}
+            if not all(v > 0 for v in (k_ms, p_ms, nbytes, ops)):
+                raise AssertionError(f"{key} {part}: a time or a bound term was not measured")
+        fc_timing[key] = row
+    emit_json({"phase": "features_commit_time", "card": card, **fc_timing})
 
     enc_en, data_en = encs["en"], corpora["en"][0]
     runs = []
@@ -941,9 +1132,18 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
                "device_busy_share": None if busy_us is None else busy_us / 1e3 / (wall * 1e3),
                "by_class_ms": {k: [c, us / 1e3] for k, (c, us) in sorted(classes.items())},
                "device_rows": rows[:25]})
+    # Every step a kernel of its own: no torch scan (cummin) and no
+    # scatter_reduce left on the path; memsets and copies may remain.
+    torch_ops = [r for r in rows if op_class(r[0]) in ("scans (cummax/cummin/cumsum)", "scatters")
+                 or any(k in r[0].lower() for k in ("cummin", "scatter"))]
+    missing = {"features kernel", "match_positions kernel", "commit kernels"} - set(classes)
+    if torch_ops or missing:
+        raise AssertionError(f"fast-stream profile: torch scans or scatters {torch_ops}, "
+                             f"kernels not seen {sorted(missing)}")
 
     t10 = timing["en_10MB"]
-    return {
+    fc = {"max_err": fc_err, "timing": fc_timing["en_10MB"], "launches": stream_launches}
+    return fc, {
         "name": "match_positions",
         "route": "cuda",
         "source": "wordpiece_tpu_torch/csrc/match_fast.cu",
@@ -1382,8 +1582,12 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.core.length_tables import build_length_tables, load_length_tables
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
+    from wordpiece_tpu_torch.ops import commit_cuda as cc
     from wordpiece_tpu_torch.ops import match_fast_cuda as mfc
+    from wordpiece_tpu_torch.ops import text_features_cuda as tfc
+    from wordpiece_tpu_torch.ops.commit import commit_with_positions
     from wordpiece_tpu_torch.ops.match_fast import match_positions as mp
+    from wordpiece_tpu_torch.ops.text_features import compute_features
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.runtime import loader
     from wordpiece_tpu_torch.utils.profiling import StageStats
@@ -1401,16 +1605,18 @@ def main(argv=None) -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     # One nvcc per source, started together.
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(m.build, force=True) for m in (wk, mfc)]:
+    libs = {"word_kernel": wk, "match_fast": mfc, "text_features": tfc, "commit": cc}
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for fut in [pool.submit(m.build, force=True) for m in libs.values()]:
             fut.result()
-    ptxas = [
-        ln.strip()
-        for log in (wk.build_log, mfc.build_log)
-        for ln in log.splitlines()
-        if any(k in ln for k in ("registers", "spill", "smem", "Compiling entry"))
-    ]
+    ptxas = {
+        name: [ln.strip() for ln in m.build_log.splitlines()
+               if any(k in ln for k in ("registers", "spill", "smem", "Compiling entry"))]
+        for name, m in libs.items()
+    }
     emit_json({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    if not all(ptxas.values()):
+        raise RuntimeError(f"no ptxas report for {[k for k, v in ptxas.items() if not v]}")
     if not loader.available():
         raise RuntimeError("native host runtime did not build")
 
@@ -1509,6 +1715,7 @@ def main(argv=None) -> int:
 
     # ---- 4. main path -----------------------------------------------------
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
+    compute_features.launches = commit_with_positions.launches = 0
     captured: dict = {}
     dispatches = 0
     main_stats = {}
@@ -1625,8 +1832,8 @@ def main(argv=None) -> int:
                              f"{dispatches + api_launches} dispatches")
     if match_global:
         raise AssertionError("the bert-scale main path read its keys from global memory")
-    if mp.launches:
-        raise AssertionError("the word engine's main path launched the fast-stream probe")
+    if mp.launches or compute_features.launches or commit_with_positions.launches:
+        raise AssertionError("the word engine's main path launched the fast-stream kernels")
 
     # ---- 5. numbers -------------------------------------------------------
     timing = {}
@@ -1720,12 +1927,11 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.engine_linear import (
         _linear_batch_compact, _widen, neighbour_lcp, sort_elements, who_tables,
     )
-    from wordpiece_tpu_torch.ops.commit import commit_with_positions
     from wordpiece_tpu_torch.ops.linear_match import match_from_sa
     from wordpiece_tpu_torch.ops.suffix_array import lcp_clamped, suffix_array
-    from wordpiece_tpu_torch.ops.text_features import compute_features
 
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
+    compute_features.launches = commit_with_positions.launches = 0
     lin_first: dict = {}
 
     def lin_recording(enc, lang):
@@ -1831,10 +2037,16 @@ def main(argv=None) -> int:
     if not ok or enc.max_len <= enc.MAX_SLOT_LEN or enc.device_batches != 0:
         raise AssertionError("linear MAX_SLOT_LEN route: wrong ids or a device batch ran")
     word_launches = mc.launches + wk.compact_from_counts.launches
+    lin_launches = {"compute_features": compute_features.launches,
+                    "commit_with_positions": commit_with_positions.launches}
     emit_json({"phase": "linear_main_path_batches", "device_batches": lin_batches,
-               "word_kernel_launches": word_launches, "match_positions_launches": mp.launches})
+               "word_kernel_launches": word_launches, "match_positions_launches": mp.launches,
+               **lin_launches})
     if word_launches or mp.launches:
         raise AssertionError("the linear path launched the word engine's or the probe's kernels")
+    if set(lin_launches.values()) != {lin_batches}:
+        raise AssertionError(f"not one features and one commit call per linear device batch: "
+                             f"{lin_launches}, {lin_batches} batches")
 
     # ---- 7. linear numbers ----------------------------------------------------
     enc_lin = lin_enc["en"]
@@ -1897,6 +2109,11 @@ def main(argv=None) -> int:
     who = who_tables(sa, np_, *tabs[1:])
     feats = compute_features(cw, n, max_len)
     best_m = match_from_sa(rank, lcp, *who, feats.window, feats.wp, max_len=max_len)
+    # Both kernels against their plain versions at this batch's shapes.
+    lin_row, _ = features_commit_check(cw, n, max_len, {"suffix_array": best_m},
+                                       enc_lin._unk_id, {"n": np_, "longest_unit": max_chain},
+                                       "linear_en_first_batch")
+    emit_json({"phase": "features_commit_vs_plain", **lin_row})
     parts = {
         "batch": run_batch,
         "sort": lambda: sort_elements(xw, m.tok_keys, bits=m.bits, per=m.per, nk=m.nk),
@@ -1934,8 +2151,8 @@ def main(argv=None) -> int:
                "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}})
 
     # ---- 8-10. the fast-stream engine --------------------------------------------
-    stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,
-                                  np.random.default_rng(2026))
+    fc, stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,
+                                      np.random.default_rng(2026))
 
     # ---- 11-12. the word kernel split in two; the word sharded paths -------
     cps_en = [torch.from_numpy(_narrow(m)).to(dev) for m in captured["en"]]
@@ -1980,6 +2197,29 @@ def main(argv=None) -> int:
             "dryrun_launches": dry["compact"],
         },
         {**stream_kernel, "dryrun_launches": dry["match_positions"]},
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "layout": layout,
+            "launches": fc["launches"][name],
+            "max_abs_err": max(fc["max_err"], lin_row["max_abs_err"]),
+            "ms": fc["timing"][part]["ms"],
+            "plain_ms": fc["timing"][part]["plain_ms"],
+            "bound_ms": fc["timing"][part]["bound_ms"],
+            "bound_by": fc["timing"][part]["bound_by"],
+            "library_ms": None,
+            "dryrun_launches": dry[name],
+        } for name, part, source, replaces, layout in (
+            ("compute_features", "features", "wordpiece_tpu_torch/csrc/text_features.cu",
+             "wordpiece_tpu/ops/text_features.py:90",
+             "one launch, reverse min scan of three flags with decoupled look-back"),
+            ("commit_with_positions", "commit", "wordpiece_tpu_torch/csrc/commit.cu",
+             "wordpiece_tpu/ops/commit.py:49",
+             f"{fc['timing']['rounds']} doubling rounds + {cc.EXTRA_LAUNCHES} launches a call "
+             "(10 MB en), round stamps, two forward sum scans with decoupled look-back"),
+        )),
         *({
             "name": name,
             "route": "cuda",

@@ -14,6 +14,7 @@ import torch
 
 from wordpiece_tpu.ops import commit as jcommit
 from wordpiece_tpu.ops import text_features as jtf
+from wordpiece_tpu_torch.bench import stream_cases
 from wordpiece_tpu_torch.engine_linear import _longest_unit
 from wordpiece_tpu_torch.ops import commit
 from wordpiece_tpu_torch.ops import text_features as tf
@@ -106,3 +107,77 @@ def test_doubling_rounds(max_chain, rounds):
     assert commit.doubling_rounds(max_chain) == rounds
     # After k rounds the visited set holds F^j(seed) for every j < 2^k.
     assert 2**rounds >= max_chain and (rounds == 0 or 2 ** (rounds - 1) < max_chain)
+
+
+# ---- the kernels' edge cases (bench/stream_cases.py), on the plain version ----------
+CASES = stream_cases.feature_cases()
+
+
+@pytest.mark.parametrize("bound", ["n", "longest_unit"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_commit_edge_cases_equal_jax(name, bound):
+    """The features' edge cases with random matches inside the window
+    (stream_cases.random_matches), max_chain n and the longest unit: ids,
+    positions and count equal the JAX package's, whole with the padding."""
+    cp, n_valid, max_len = CASES[name]
+    feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
+    rng = np.random.default_rng(len(name))
+    best_id, best_len = stream_cases.random_matches(rng, feats.window.numpy())
+    n = cp.shape[0]
+    max_chain = n if bound == "n" else _longest_unit(cp[:n_valid])
+    ids, positions, count = commit.commit_with_positions(
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
+        unk_id=UNK, max_chain=max_chain,
+    )
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    assert int(count) == int(want_count)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(positions.numpy(), want_pos)
+    assert ids.dtype == positions.dtype == count.dtype == torch.int32 and count.dim() == 0
+
+
+def test_q_run_drives_max_chain():
+    """The dry run's 5,000-`q` unit with one-codepoint matches: a chain of
+    5,000 steps, doubling_rounds(5000) = 13 rounds, equal to the JAX
+    package's loop to the fixed point."""
+    cp = stream_cases.q_run()
+    n = cp.shape[0]
+    feats = tf.compute_features(torch.from_numpy(cp), n, 1)
+    best_id, best_len = stream_cases.single_matches(cp)
+    assert _longest_unit(cp) == 5000 and commit.doubling_rounds(5000) == 13
+    want_ids, want_pos, want_count = jax_commit(cp, n, 1, best_id, best_len)
+    assert int(want_count) == 5004
+    ids, positions, count = commit.commit_with_positions(
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n,
+        unk_id=UNK, max_chain=5000,
+    )
+    assert int(count) == 5004
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(positions.numpy(), want_pos)
+
+
+def test_cpu_call_builds_no_library(monkeypatch):
+    """On CPU tensors the wrapper runs the plain version: nothing is built
+    or loaded, and no launch is counted."""
+    from wordpiece_tpu_torch.ops import commit_cuda, cuda_build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU call tried to build or load a CUDA library")
+
+    monkeypatch.setattr(commit_cuda, "build", refuse)
+    monkeypatch.setattr(cuda_build, "build_library", refuse)
+    before = commit.commit_with_positions.launches
+    cp, feats, best_id, best_len = random_case(3, 300, 300, 6)
+    commit.commit(torch.from_numpy(best_id), torch.from_numpy(best_len), feats, 300,
+                  unk_id=UNK, max_chain=300)
+    assert commit.commit_with_positions.launches == before
+
+
+def test_mixed_devices_raise():
+    """The wrapper checks that every input lies on best_id's device, on
+    the CPU too."""
+    cp, feats, best_id, best_len = random_case(4, 64, 64, 6)
+    feats.ss = feats.ss.to("meta")
+    with pytest.raises(ValueError, match="ss on meta"):
+        commit.commit_with_positions(torch.from_numpy(best_id), torch.from_numpy(best_len),
+                                     feats, 64, unk_id=UNK, max_chain=64)

@@ -218,9 +218,12 @@ def test_phase_lines(world, runs):
         assert ln["grid"] == (half if path.endswith("2d") else [world, 1])
         assert ln["equal_oracle"] and ln["dispatches"] >= 1 and ln["seconds"] > 0
         assert set(ln["launches"].values()) == {0}
+        assert set(ln["launches"]) == set(dryrun.KERNELS)
         assert "cards" not in ln
         if not path.startswith("stream"):
             assert ln["verify_repairs"] == 0 and ln["device_fallbacks"] == 0
+    assert {"compute_features", "commit_with_positions", "match_positions"} == set(
+        dryrun.STREAM_KERNELS)
     assert lines["word_1d"]["collectives_per_dispatch"] == 1
     assert lines["at_scale_1d"]["collectives_per_dispatch"] == 1
     assert lines["multihost"]["collectives"] == {"all_reduce": 1}

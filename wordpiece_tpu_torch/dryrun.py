@@ -16,6 +16,7 @@ rank runs, in order, and holds against the native oracle:
 
  1. the stream engine on the demo text: a (n/2) x 2 grid
     (encode_2d_parallel) where n >= 4 is even, else 1-D encode_data_parallel;
+    on the card the features, probe and commit kernels launch once each;
  2. the word engine on the demo text: the 1-D ShardedWordEncoder, and on a
     (n/2) x 2 grid (the split kernels) where n >= 4 is even;
  3. at scale: the 1-D ShardedWordEncoder on a 4.5 MB corpus with an 8k
@@ -61,8 +62,12 @@ from .core.vocab import Vocabulary, build_index, parse_vocab
 from .engine import index_statics
 from .engine_linear import _longest_unit
 from .engine_word import resolve_device
+from .ops import commit as commit_ops
+from .ops import commit_cuda as cc
 from .ops import match_fast as mf
 from .ops import match_fast_cuda as mfc
+from .ops import text_features as tf
+from .ops import text_features_cuda as tfc
 from .ops import word_kernel_cuda as wk
 from .parallel.multihost import MultiHostWordEncoder, file_shard_bounds, initialize_distributed
 from .parallel.sharding import (
@@ -82,7 +87,10 @@ COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast"
 # Each kernel wrapper, by the name the kernels line of chip_smoke.py gives it.
 KERNELS = {"word_match_commit": wk.word_match_commit_multi, "compact": wk.compact_from_counts,
            "word_match": wk.word_match_packed, "word_commit": wk.word_commit_packed,
-           "match_positions": mf.match_positions}
+           "match_positions": mf.match_positions, "compute_features": tf.compute_features,
+           "commit_with_positions": commit_ops.commit_with_positions}
+# The stream path's kernels, each once an encode.
+STREAM_KERNELS = ("compute_features", "match_positions", "commit_with_positions")
 
 
 def _demo_lines() -> list[str]:
@@ -310,7 +318,7 @@ def _stream_phase(r: _Rank, vocab) -> None:
                                 max_chain=_longest_unit(cps))
         return assemble_ids(ids.cpu().numpy(), counts.cpu().numpy()), int(total), want, want.shape[0]
 
-    r.run(path, grid, encode, launched=("match_positions",), per_encode=per_encode)
+    r.run(path, grid, encode, launched=STREAM_KERNELS, per_encode=per_encode)
 
 
 def _word_phases(r: _Rank, vocab, mesh) -> None:
@@ -437,8 +445,8 @@ def dryrun_multichip(n_devices: int, *, device="cuda") -> dict:
     cards = None
     if dev.type == "cuda":
         # One build before the ranks start, not one nvcc per rank.
-        with ThreadPoolExecutor(max_workers=2) as pool:
-            for fut in [pool.submit(wk.build), pool.submit(mfc.build)]:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            for fut in [pool.submit(m.build) for m in (wk, mfc, tfc, cc)]:
                 fut.result()
         cards = card_lines(n_devices)
     corpus = at_scale_corpus()

@@ -7,11 +7,12 @@ device:
 
 Inputs are padded to a bucket size (powers of two between 2^7 and 2^22,
 then multiples of 2^22), as the JAX engine pads them for its compiled
-programs, so both engines see the same shapes.  On a CUDA device the match
-is the hand-written kernel csrc/match_fast.cu; features and commit are
-torch ops (ops/text_features.py, ops/commit.py).  On device="cpu" the same
-ops run with the match's plain version; nothing falls back from one to the
-other.
+programs, so both engines see the same shapes.  On a CUDA device each step
+is a hand-written kernel: the features csrc/text_features.cu
+(ops/text_features.py), the match csrc/match_fast.cu (ops/match_fast.py)
+and the commit csrc/commit.cu (ops/commit.py), one call of each an encode.
+On device="cpu" the same wrappers run their plain PyTorch versions;
+nothing falls back from one to the other.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Linear (suffix-array) encoder — the reference's second algorithm, on the
-card as torch ops.
+card as torch ops and two hand-written kernels (the text features and the
+greedy commit).
 
 The reference builds S = text · sep · tok_1 · sep · … · tok_k · sep and
 suffix-sorts ALL of it (src/linear.cpp:87-101), even though only the k
@@ -7,8 +8,10 @@ token START positions ever enter its who-tables (src/linear.cpp:153-160).
 This design drops the tokens' other suffixes: each vocab token is ONE
 sort element whose key is its own symbols, precomputed per vocabulary.
 
-Pipeline per batch (one asynchronous run of torch ops on the encoder's
-stream, one device-to-host copy of a compact vector):
+Pipeline per batch (one asynchronous run of torch ops and kernels on the
+encoder's stream, one device-to-host copy of a compact vector; the
+features, csrc/text_features.cu, and the commit, csrc/commit.cu, are the
+CUDA kernels on a card and their plain versions on the CPU):
   1. text suffixes' first-max_len symbols packed into nk int32 keys
      (dense per-VOCAB alphabet; text symbols foreign to the vocabulary
      collapse into one FOREIGN code — see correctness note below);

@@ -14,7 +14,7 @@ have sentinel n).  The rollback is segment-local: tokens are discarded
 back to the last visited word-prefix position (tokens_since_prefix in the
 reference), and a failing position always terminates its segment.
 
-This module computes, in parallel torch ops:
+commit_with_positions_plain computes, in parallel torch ops:
  1. visited = orbit of F from every unit start, by pointer doubling
     (scatter-max and gather rounds);
  2. segments = runs of visited positions between visited word-prefix
@@ -23,12 +23,20 @@ This module computes, in parallel torch ops:
  3. the compacted id stream, via cumsum + scatter.
 
 Engine-neutral: it takes matches from any matcher (the linear engine's
-suffix-array sweeps here; the fast-stream engine's probes later).
+suffix-array sweeps, the fast-stream engine's probes).
+
+`commit_with_positions` runs that plain version for CPU tensors and the
+hand-written CUDA kernels of csrc/commit.cu (ops/commit_cuda.py:
+doubling_rounds(max_chain) + 4 launches, the call counted once in
+commit_with_positions.launches) for CUDA tensors; never a fallback from
+one to the other.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import commit_cuda
 
 
 def doubling_rounds(max_chain: int) -> int:
@@ -67,7 +75,40 @@ def commit_with_positions(
     is a unit start, the walk leaves a unit only for the next unit's
     start (itself a seed) or the sentinel, and F strictly increases, so
     the orbit of a seed inside its unit has at most max_chain positions.
-    Rounds past the fixed point mark nothing new."""
+    Rounds past the fixed point mark nothing new.
+
+    The plain version for CPU tensors, the CUDA kernels for CUDA tensors
+    (one call counted in commit_with_positions.launches)."""
+    dev = best_id.device
+    for name, t in (("best_len", best_len), ("window", feats.window), ("ss", feats.ss),
+                    ("wnext", feats.wnext), ("space", feats.space), ("wp", feats.wp)):
+        if t.device != dev:
+            raise ValueError(f"best_id on {dev}, {name} on {t.device}")
+    if dev.type == "cpu":
+        return commit_with_positions_plain(best_id, best_len, feats, int(n_valid),
+                                           unk_id=unk_id, max_chain=max_chain)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = commit_cuda.launch(best_id, best_len, feats, int(n_valid), unk_id=int(unk_id),
+                             rounds=doubling_rounds(max_chain))
+    commit_with_positions.launches += 1
+    return out
+
+
+commit_with_positions.launches = 0
+
+
+def commit_with_positions_plain(
+    best_id: torch.Tensor,
+    best_len: torch.Tensor,
+    feats,
+    n_valid: int,
+    *,
+    unk_id: int,
+    max_chain: int,
+):
+    """commit_with_positions in PyTorch ops: the CPU's version, and what
+    the kernels are held to on the card."""
     n = best_id.shape[0]
     dev = best_id.device
     pos = torch.arange(n, dtype=torch.int32, device=dev)

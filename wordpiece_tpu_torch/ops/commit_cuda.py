@@ -1,0 +1,108 @@
+"""Binding of the hand-written CUDA kernels of the greedy commit.
+
+csrc/commit.cu holds the kernels that replace the XLA program
+wordpiece_tpu/ops/commit.py::commit_with_positions: the step function and
+seeds, one pointer-doubling round a launch (plain stores of round stamps,
+no scatter), the segments by a forward scan with decoupled look-back
+(csrc/scan.cuh) and the kill table, the emit scan with the compacted
+writes, and the fill of the tail.  They are compiled with nvcc for sm_90a
+into a library with a plain C interface at first use (ops/cuda_build.py)
+and loaded with ctypes; nothing is compiled at module import.  The public
+entry point is ops/commit.commit_with_positions, which calls `launch` for
+CUDA tensors and counts its calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from .cuda_build import BUILD_DIR, CSRC_DIR, aligned16, build_library
+
+SOURCE = os.path.join(CSRC_DIR, "commit.cu")
+LIBRARY = os.path.join(BUILD_DIR, "libcommit.so")
+EXTRA_LAUNCHES = 4  # kernels a call launches besides its doubling rounds
+
+_LOCK = threading.Lock()
+_LIB = None
+build_log = ""  # nvcc's output of the last build (ptxas -v: regs, smem, spills)
+
+_P = ctypes.c_void_p
+
+
+def build(*, force: bool = False):
+    """Compile csrc/commit.cu (if the library is stale or `force`) and load
+    it.  Returns the ctypes library; raises if nvcc fails."""
+    global _LIB, build_log
+    with _LOCK:
+        if _LIB is not None and not force:
+            return _LIB
+        lib, log = build_library(SOURCE, LIBRARY, force=force)
+        if log is not None:
+            build_log = log
+        lib.wp_commit_scratch_bytes.restype = ctypes.c_longlong
+        lib.wp_commit_scratch_bytes.argtypes = [ctypes.c_longlong]
+        fn = lib.wp_commit
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            _P,  # best_id int32[n]
+            _P,  # best_len int32[n]
+            _P,  # window int32[n]
+            _P,  # ss int32[n + 1]
+            _P,  # wnext int32[n + 1]
+            _P,  # space bool[n]
+            _P,  # wp bool[n]
+            ctypes.c_longlong,  # n
+            ctypes.c_longlong,  # n_valid
+            ctypes.c_int,  # unk_id
+            ctypes.c_int,  # doubling rounds
+            _P,  # scratch
+            _P,  # ids int32[n]
+            _P,  # positions int32[n]
+            _P,  # count int32[]
+            _P,  # cudaStream_t
+        ]
+        _LIB = lib
+        return lib
+
+
+def _operand(name: str, t: torch.Tensor, dtype, size: int) -> torch.Tensor:
+    """t as the kernel reads it: contiguous, 16-byte aligned, of `dtype`
+    and `size` elements; raises on another shape."""
+    if t.dim() != 1 or t.shape[0] != size:
+        raise ValueError(f"{name}: expected [{size}], got {list(t.shape)}")
+    return aligned16(t.to(dtype).contiguous())
+
+
+def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int, rounds: int):
+    """One call (rounds + EXTRA_LAUNCHES kernels) on the current stream of
+    the tensors' card.  Returns (ids int32[n], positions int32[n], count
+    int32 0-d), all on the card.  Raises on a refused launch."""
+    n = int(best_id.shape[0])
+    dev = best_id.device
+    ops = [
+        _operand("best_id", best_id, torch.int32, n),
+        _operand("best_len", best_len, torch.int32, n),
+        _operand("window", feats.window, torch.int32, n),
+        _operand("ss", feats.ss, torch.int32, n + 1),
+        _operand("wnext", feats.wnext, torch.int32, n + 1),
+        _operand("space", feats.space, torch.bool, n),
+        _operand("wp", feats.wp, torch.bool, n),
+    ]
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    positions = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    lib = build()
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        scratch = torch.empty(lib.wp_commit_scratch_bytes(n), dtype=torch.uint8, device=dev)
+        rc = lib.wp_commit(
+            *(t.data_ptr() for t in ops), n, int(n_valid), int(unk_id), int(rounds),
+            scratch.data_ptr(), ids.data_ptr(), positions.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"commit kernels launch failed: CUDA error {rc}")
+    return ids, positions, count

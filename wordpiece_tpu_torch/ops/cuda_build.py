@@ -3,14 +3,18 @@
 Each source in csrc/ compiles with nvcc for sm_90a into a shared library
 with a plain C interface, at first use, into this package's build/
 directory (ignored by git), and is loaded with ctypes by its wrapper
-module (ops/word_kernel_cuda.py, ops/match_fast_cuda.py).  Nothing is
-compiled at module import.
+module (ops/word_kernel_cuda.py, ops/match_fast_cuda.py,
+ops/text_features_cuda.py, ops/commit_cuda.py).  A library is rebuilt
+when it is older than its source or than any header the source includes
+from csrc/, directly or through another header.  Nothing is compiled at
+module import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -36,13 +40,48 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source: str) -> list[str]:
+    """The files `source` includes with quotes, found beside the file that
+    names them, directly or through another such header, each once."""
+    seen: list[str] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        with open(path, encoding="utf-8") as f:
+            names = _INCLUDE.findall(f.read())
+        for name in names:
+            dep = os.path.normpath(os.path.join(os.path.dirname(path), name))
+            if os.path.exists(dep) and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
+def is_stale(source: str, library: str) -> bool:
+    """Whether `library` is missing or older than `source` or one of its
+    local includes."""
+    if not os.path.exists(library):
+        return True
+    built = os.path.getmtime(library)
+    return any(os.path.getmtime(p) > built for p in [source, *local_includes(source)])
+
+
+def aligned16(t):
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels load 16 bytes at a time); a fresh allocation is aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def build_library(source: str, library: str, *, force: bool = False):
-    """Compile `source` into `library` (if the library is missing, older
-    than the source, or `force`) and load it.  Returns (the ctypes
-    library, nvcc's output of this build or None when nothing was built);
-    raises if nvcc fails.  The caller serialises calls for one library."""
+    """Compile `source` into `library` (if the library is stale, see
+    is_stale, or `force`) and load it.  Returns (the ctypes library,
+    nvcc's output of this build or None when nothing was built); raises if
+    nvcc fails.  The caller serialises calls for one library."""
     log = None
-    if force or not os.path.exists(library) or os.path.getmtime(library) < os.path.getmtime(source):
+    if force or is_stale(source, library):
         os.makedirs(os.path.dirname(library), exist_ok=True)
         tmp = f"{library}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, source]

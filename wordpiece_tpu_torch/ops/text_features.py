@@ -1,8 +1,9 @@
 """Character classes and per-position text features on torch tensors.
 
 The classifiers (utf8.cpp:10-29 semantics) are the ones the word kernel's
-plain version uses; the CUDA kernel (csrc/word_kernel.cu) carries the same
-definitions.  Each takes an integer tensor of codepoints and returns a
+plain version uses; the CUDA kernels carry the same definitions
+(csrc/word_kernel.cu its own copy, csrc/text_features.cu those of
+csrc/classify.cuh).  Each takes an integer tensor of codepoints and returns a
 bool tensor of the same shape.
 
 `compute_features` gives the position-wise quantities that drive the
@@ -19,6 +20,12 @@ linear engine's matching and the shared greedy commit (ops/commit.py):
 
 Padding positions (i >= n_valid) are treated as spaces, so they are
 skipped and never emit.
+
+`compute_features` runs its plain version (compute_features_plain) for
+a CPU tensor and the hand-written CUDA kernel csrc/text_features.cu
+(ops/text_features_cuda.py: one launch, counted in
+compute_features.launches) for a CUDA tensor; never a fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import dataclasses
 import torch
 
 from ..core import unicode as uni
+from . import text_features_cuda
 
 
 def is_space(cp: torch.Tensor) -> torch.Tensor:
@@ -73,8 +81,30 @@ def _next_at_or_after(flag: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def compute_features(cp: torch.Tensor, n_valid: int, max_len: int) -> TextFeatures:
-    """cp: int32[n] codepoints (garbage beyond n_valid); n_valid: the true
-    length, a host int."""
+    """cp: int[n] codepoints (garbage beyond n_valid), taken as contiguous
+    int32; n_valid: the true length, a host int.  The plain version for a
+    CPU tensor, the CUDA kernel for a CUDA tensor."""
+    integer = not (cp.dtype.is_floating_point or cp.dtype.is_complex or cp.dtype == torch.bool)
+    if cp.dim() != 1 or not integer:
+        raise ValueError(f"cp: expected a 1-D integer tensor, got {cp.dtype}{list(cp.shape)}")
+    if int(n_valid) < 0 or int(max_len) < 0:
+        raise ValueError(f"n_valid {n_valid}, max_len {max_len}")
+    cp = cp.to(torch.int32).contiguous()
+    if cp.device.type == "cpu":
+        return compute_features_plain(cp, int(n_valid), int(max_len))
+    if cp.device.type != "cuda":
+        raise ValueError(f"unsupported device {cp.device}")
+    feats = TextFeatures(**text_features_cuda.launch(cp, int(n_valid), int(max_len)))
+    compute_features.launches += 1
+    return feats
+
+
+compute_features.launches = 0
+
+
+def compute_features_plain(cp: torch.Tensor, n_valid: int, max_len: int) -> TextFeatures:
+    """compute_features in PyTorch ops: the CPU's version, and what the
+    kernel is held to on the card."""
     n = cp.shape[0]
     pos = torch.arange(n, dtype=torch.int32, device=cp.device)
     pad = pos >= n_valid
