@@ -88,10 +88,15 @@ JAX package.  Phases, each fatal on failure:
     at max_chain n and at the longest unit: on the first 1 MB of each of
     en/ru/ja/zh and the 10 MB en bucket (padded as the engine pads them),
     and on bench/stream_cases.py's cases (n = 1, 128, around one and two
-    2,048-position tiles, n_valid < n, spacing-free and all-space texts
-    over 4 and 150 tiles, the 2,000-codepoint space-free run, the dry
-    run's 5,000-`q` run, punctuation-dense, CJK and astral-plane text).
-    Integers: tolerance exactly 0;
+    tiles of either kernel (2,048 positions for the commit, 4,096 for the
+    features), n_valid < n, spacing-free and all-space texts over 4 and
+    150 tiles, the 2,000-codepoint space-free run, the dry run's 5,000-`q`
+    run, punctuation-dense, CJK and astral-plane text), and the commit
+    kernels also on its commit_cases (units at tile edges, words over 2
+    and 3 tiles with their only failure in the last, a failure in a tile
+    with no unit start, all-space tiles between units, n_valid after a
+    straddling unit) with their own matches.  Integers: tolerance
+    exactly 0;
  9. stream main path: every kernel's launch count is set to 0, then
     make_encoder(vocab, "fast-stream", device="cuda") encodes the 10 MB
     en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
@@ -107,9 +112,13 @@ JAX package.  Phases, each fatal on failure:
     and global tags forced), its plain version's time at both, its bound;
     the features and commit kernels' times the same way at the same two
     shapes (the commit on the probe's matches at the longest unit), beside
-    their plain versions' and their bounds; the 10 MB en fast-stream rate
+    their plain versions' and their bounds, and one call of each captured
+    in a CUDA graph, whose nodes must be one kernel and one memset for the
+    features, and three kernels and one memset for the commit at max_chain
+    n and at the longest unit alike; the 10 MB en fast-stream rate
     (min and median of 5) with each part's time (host padding, H2D,
-    features, match, commit, count and D2H), the peak of
+    features, match, commit, count and D2H) and each device part's host
+    enqueue time, the peak of
     max_memory_allocated, and one encode under torch.profiler (device time
     by op class, busy share), which must show the three kernels and no
     torch scan (cummin) or scatter kernel;
@@ -714,13 +723,50 @@ def features_bytes_ops(n: int) -> tuple[int, int]:
     return 20 * n + 8, 30 * n
 
 
-def commit_bytes_ops(n: int, rounds: int) -> tuple[int, int]:
+def commit_bytes_ops(n: int) -> tuple[int, int]:
     """Bytes the commit must move: best_id, best_len, window (4 each), ss,
     wnext (4 each, n + 1), space, wp (1 each) read; ids, positions (4
     each) and the count written.  Operations: ~18 a position (the step,
-    the seeds, the segments, kill and emit) and 4 a position a doubling
-    round."""
-    return 30 * n + 12, (18 + 4 * rounds) * n
+    the seeds, the segments, kill and emit)."""
+    return 30 * n + 12, 18 * n
+
+
+def launches_per_call(fn) -> dict:
+    """Device work of one call of fn(), read from a CUDA graph of it: its
+    kernel, memset and other nodes, counted through the driver
+    (cuGraphGetNodes, cuGraphNodeGetType).  The capture also fails on a
+    host synchronisation in fn.  (torch.profiler drops some memset records
+    once this script has run several profiles, so it cannot count them.)"""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    got = {"kernels": 0, "memsets": 0, "other": 0}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        # CU_GRAPH_NODE_TYPE_KERNEL = 0, CU_GRAPH_NODE_TYPE_MEMSET = 2
+        got[{0: "kernels", 2: "memsets"}.get(kind.value, "other")] += 1
+    del graph
+    torch.cuda.synchronize()
+    return got
 
 
 def exact_diff(got, want, label: str) -> int:
@@ -775,8 +821,8 @@ def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: 
             errs[f"commit_{key}"] = exact_diff(g, w, f"{label} commit {key}")
             ids[key] = int(w[2])
     row = {"input": label, "n": int(x.shape[0]), "n_valid": n_valid, "max_len": max_len,
-           "max_chain": chains, "rounds": {k: co.doubling_rounds(v) for k, v in chains.items()},
-           "ids": ids, "max_abs_err_by_part": errs, "max_abs_err": max(errs.values())}
+           "max_chain": chains, "ids": ids, "max_abs_err_by_part": errs,
+           "max_abs_err": max(errs.values())}
     return row, got
 
 
@@ -784,7 +830,8 @@ def stream_parts(enc, data: bytes):
     """One fast-stream encode of `data`, part by part, the steps of
     FastEncoder.encode_codepoints: the host's decode and padding by the
     host clock, then H2D, features, match, commit, and the count's read
-    with the ids' D2H by CUDA events.  Returns (ids, ms by part)."""
+    with the ids' D2H by CUDA events, and each part's host time between
+    the same two events.  Returns (ids, ms by part)."""
     import numpy as np
     import torch
 
@@ -804,23 +851,32 @@ def stream_parts(enc, data: bytes):
     max_chain = _longest_unit(cps)
     host_ms = (time.perf_counter() - t0) * 1e3
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
+    stamps = []  # the host clock at each event's record
+
+    def mark(i):
+        ev[i].record()
+        stamps.append(time.perf_counter())
+
+    mark(0)
     cp_pad = torch.from_numpy(cp_np).to(enc.device)
-    ev[1].record()
+    mark(1)
     n = cp_pad.shape[0] - st["max_len"]
     feats = compute_features(cp_pad[:n], int(cps.shape[0]), st["max_len"])
-    ev[2].record()
+    mark(2)
     best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
-    ev[3].record()
+    mark(3)
     ids, count = commit_ops.commit(best_id, best_len, feats, int(cps.shape[0]), unk_id=unk_id,
                                    max_chain=max_chain)
-    ev[4].record()
+    mark(4)
     out = ids[: int(count)].cpu().numpy()
-    ev[5].record()
+    mark(5)
     ev[5].synchronize()
     names = ("h2d", "features", "match", "commit", "count_and_d2h")
     parts = {"host_decode_pad": host_ms}
     parts.update({k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)})
+    # A part whose kernel is shorter than the host's enqueue of it shows
+    # the enqueue by events: the card waits for the host.
+    parts["host_enqueue"] = {k: (stamps[i + 1] - stamps[i]) * 1e3 for i, k in enumerate(names)}
     return out, parts
 
 
@@ -913,11 +969,12 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     fc_at = {}  # the two kernels' inputs at the shapes timed in phase 10
     fc_rng = np.random.default_rng(2028)
 
-    def fc_stream(enc, cps, n_valid, label, bucket):
+    def fc_stream(enc, cps, n_valid, label, bucket, given=None):
         """Both kernels against their plain versions on `cps` padded as the
         engine pads it (bucket) or as it is, then max_len zeros: the
-        probe kernel's matches and random ones inside the window, at
-        max_chain n and the longest unit."""
+        probe kernel's matches and random ones inside the window, or the
+        `given` (best_id, best_len), at max_chain n and the longest
+        unit."""
         nonlocal fc_err
         st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
         if bucket:
@@ -935,8 +992,9 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             return tuple(torch.from_numpy(a).to(enc.device) for a in got)
 
         chains = {"n": n, "longest_unit": _longest_unit(cps[:n_valid])}
-        row, _ = features_commit_check(cp_pad[:n], n_valid, st["max_len"],
-                                       {"probe": probe, "random": rand},
+        matches = ({"probe": probe, "random": rand} if given is None else
+                   {"given": tuple(torch.from_numpy(a).to(enc.device) for a in given)})
+        row, _ = features_commit_check(cp_pad[:n], n_valid, st["max_len"], matches,
                                        enc._statics["unk_id"], chains, label)
         fc_err = max(fc_err, row["max_abs_err"])
         emit_json({"phase": "features_commit_vs_plain", **row})
@@ -952,6 +1010,8 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     cases = {**stream_cases.feature_cases(), **stream_cases.large_cases()}
     for name, (cps, n_valid, _) in cases.items():
         fc_stream(special, cps, n_valid, name, False)
+    for name, (cps, n_valid, _, best_id, best_len) in stream_cases.commit_cases().items():
+        fc_stream(special, cps, n_valid, name, False, given=(best_id, best_len))
 
     # ---- 9. stream main path ------------------------------------------------
     mp.launches = mp.launches_global = 0
@@ -1080,9 +1140,19 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         unk_id, max_chain, x = enc._statics["unk_id"], chains["longest_unit"], cp_pad[:n]
         feats = fk(x, n_valid, st["max_len"])
         best = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
-        rounds = co.doubling_rounds(max_chain)
-        row = {"n": n, "n_valid": n_valid, "max_chain": max_chain, "rounds": rounds,
-               "commit_kernel_launches_per_call": rounds + commit_cuda.EXTRA_LAUNCHES}
+        row = {"n": n, "n_valid": n_valid, "max_chain": max_chain,
+               "features_launches_per_call": launches_per_call(
+                   lambda: fk(x, n_valid, st["max_len"])),
+               "commit_launches_per_call": {
+                   name: launches_per_call(
+                       lambda: ck(*best, feats, n_valid, unk_id=unk_id, max_chain=chain))
+                   for name, chain in (("max_chain_n", n), ("longest_unit", max_chain))}}
+        want_calls = {"features_launches_per_call": {"kernels": 1, "memsets": 1, "other": 0},
+                      "commit_launches_per_call": {
+                          k: {"kernels": commit_cuda.KERNEL_LAUNCHES, "memsets": 1, "other": 0}
+                          for k in ("max_chain_n", "longest_unit")}}
+        if any(row[k] != v for k, v in want_calls.items()):
+            raise AssertionError(f"{key}: launches a call {row}, expected {want_calls}")
         for part, k_fn, p_fn, (nbytes, ops) in (
             ("features", lambda: fk(x, n_valid, st["max_len"]),
              lambda: tfo.compute_features_plain(x, n_valid, st["max_len"]),
@@ -1090,7 +1160,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             ("commit", lambda: ck(*best, feats, n_valid, unk_id=unk_id, max_chain=max_chain),
              lambda: co.commit_with_positions_plain(*best, feats, n_valid, unk_id=unk_id,
                                                     max_chain=max_chain),
-             commit_bytes_ops(n, rounds)),
+             commit_bytes_ops(n)),
         ):
             k_ms = device_ms(k_fn, 50)
             p_ms = cuda_ms(p_fn, 3)
@@ -2214,11 +2284,13 @@ def main(argv=None) -> int:
         } for name, part, source, replaces, layout in (
             ("compute_features", "features", "wordpiece_tpu_torch/csrc/text_features.cu",
              "wordpiece_tpu/ops/text_features.py:90",
-             "one launch, reverse min scan of three flags with decoupled look-back"),
+             "one launch, 4,096-position tiles (2,048 below 2^19 positions) staged in shared "
+             "memory, reverse min scan of three flags with decoupled look-back"),
             ("commit_with_positions", "commit", "wordpiece_tpu_torch/csrc/commit.cu",
              "wordpiece_tpu/ops/commit.py:49",
-             f"{fc['timing']['rounds']} doubling rounds + {cc.EXTRA_LAUNCHES} launches a call "
-             "(10 MB en), round stamps, two forward sum scans with decoupled look-back"),
+             f"{cc.KERNEL_LAUNCHES} launches a call whatever max_chain: a tile-local walk "
+             "(doubling in shared memory, one carry a tile), the emit (forward sum scan with "
+             "decoupled look-back), the fill"),
         )),
         *({
             "name": name,

@@ -1,8 +1,11 @@
 """The port's greedy commit (ops/commit.py) against the JAX package's
 commit_with_positions / commit, on the same numpy-seeded matches.  The
-port runs a fixed number of pointer-doubling rounds where the JAX package
-loops until nothing changes; both must give the same ids, positions and
-count.  Integers: exact."""
+port's plain version runs a fixed number of pointer-doubling rounds where
+the JAX package loops until nothing changes; both must give the same ids,
+positions and count.  A numpy model of the CUDA kernels' tile-local walk
+(csrc/commit.cu: doubling inside each tile, one carry between tiles, the
+kill across tiles from one byte a tile) is held to the JAX package too,
+at the kernels' tile and at a small one.  Integers: exact."""
 
 from functools import partial
 
@@ -181,3 +184,162 @@ def test_mixed_devices_raise():
     with pytest.raises(ValueError, match="ss on meta"):
         commit.commit_with_positions(torch.from_numpy(best_id), torch.from_numpy(best_len),
                                      feats, 64, unk_id=UNK, max_chain=64)
+
+
+# ---- the commit kernels' tile crossings (bench/stream_cases.commit_cases) ----------
+COMMIT_CASES = stream_cases.commit_cases()
+
+
+@pytest.mark.parametrize("bound", ["n", "longest_unit"])
+@pytest.mark.parametrize("name", sorted(COMMIT_CASES))
+def test_commit_tile_crossings_equal_jax(name, bound):
+    """Units at tile edges, words over 2 and 3 tiles with their only
+    failure in the last, a failure in a tile with no unit start, all-space
+    tiles between units, n_valid after a straddling unit: the plain
+    version equals the JAX package, with exactly one UNK, at max_chain n
+    and the longest unit."""
+    cp, n_valid, max_len, best_id, best_len = COMMIT_CASES[name]
+    feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
+    max_chain = cp.shape[0] if bound == "n" else _longest_unit(cp[:n_valid])
+    ids, positions, count = commit.commit_with_positions(
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
+        unk_id=UNK, max_chain=max_chain,
+    )
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    assert int(count) == int(want_count) > 0
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(positions.numpy(), want_pos)
+    assert int((want_ids == UNK).sum()) == 1
+
+
+HAS_START, FAIL_HEAD, FAIL_TAIL = 1, 2, 4  # csrc/commit.cu's byte a tile
+
+
+def _double(jump, mark, until_jumps: bool):
+    """commit.cu's double_rounds: a marked position marks its jump's
+    target, every jump is squared, until a round marks nothing new (or,
+    with until_jumps, moves no jump)."""
+    while True:
+        nxt = jump[jump]
+        new = mark.copy()
+        new[jump[mark]] = True
+        changed = (nxt != jump).any() if until_jumps else (new != mark).any()
+        jump, mark = nxt, new
+        if not changed:
+            return jump, mark
+
+
+def tile_walk_model(best_id, best_len, feats, n_valid: int, unk_id: int, tile: int):
+    """numpy model of the CUDA commit (csrc/commit.cu) with `tile`
+    positions a tile: the walk kernel's marks and carry, then the emit
+    kernel's kill across tiles and compacted writes.  Returns (ids,
+    positions, count) as the kernels write them."""
+    space, wp = feats.space.numpy(), feats.wp.numpy()
+    ss, wnext, window = feats.ss.numpy(), feats.wnext.numpy(), feats.window.numpy()
+    n = best_id.shape[0]
+    tiles = max(1, -(-n // tile))
+    pos = np.arange(n)
+    step = np.where(best_len > 0, ss[np.minimum(pos + best_len, n)],
+                    ss[wnext[np.minimum(pos + window, n)]])
+    f_all = np.where(space, n, step)
+    seed_all = ~space & np.concatenate([[True], space[:-1]]) & (pos < min(n_valid, n))
+    visited = np.zeros(tiles * tile, bool)
+    record = np.zeros(tiles, np.uint8)
+    carry_out = []
+    l = np.arange(tile)
+    for q in range(tiles):
+        t0 = q * tile
+        live = min(tile, n - t0)
+        f = np.full(tile, n)
+        f[:live] = f_all[t0:t0 + live]
+        mark = np.zeros(tile, bool)
+        mark[:live] = seed_all[t0:t0 + live]
+        nonspace = np.zeros(tile, bool)
+        nonspace[:live] = ~space[t0:t0 + live]
+        u0 = int(np.argmax(mark)) if mark.any() else tile
+        u_live = int(np.argmax(nonspace)) if nonspace.any() else tile
+        jump = np.where((l < live) & (f - t0 < live), f - t0, l)
+        jump = np.where((l < u0) & (jump >= u0), l, jump)
+        if u_live < tile:
+            jump, mark = _double(jump, mark, u0 == tile)
+        carry_in = n if q == 0 else carry_out[q - 1]
+        if u0 < tile:
+            carry_out.append(int(f[np.nonzero(mark)[0].max()]))
+        elif u_live == tile:
+            carry_out.append(carry_in)  # passed on
+        else:
+            lc = carry_in - t0
+            carry_out.append(int(f[jump[lc]]) if carry_in < n and lc < tile else carry_in)
+        lc = carry_in - t0
+        if u_live < u0 and carry_in < n and 0 <= lc < u0:
+            hi = min(u0, live)
+            jump = np.where((l < hi) & (f - t0 < hi), f - t0, l)
+            start = np.zeros(tile, bool)
+            start[lc] = True
+            _, extra = _double(jump, start, False)
+            mark |= extra
+        visited[t0:t0 + tile] = mark
+        failed = np.zeros(tile, bool)
+        failed[:live] = mark[:live] & (best_len[t0:t0 + live] <= 0)
+        prefix = np.zeros(tile, bool)
+        prefix[:live] = wp[t0:t0 + live]
+        starts = np.nonzero(mark & prefix)[0]
+        fs, ls = (starts[0], starts[-1]) if len(starts) else (tile, -1)
+        record[q] = ((HAS_START if len(starts) else 0) | (FAIL_HEAD * failed[l < fs].any())
+                     | (FAIL_TAIL * failed[l >= ls].any()))
+
+    def across(q, step):
+        j = q + step
+        while 0 <= j < tiles:
+            if record[j] & HAS_START:
+                return bool(record[j] & (FAIL_TAIL if step < 0 else FAIL_HEAD))
+            if record[j] & FAIL_HEAD:
+                return True
+            j += step
+        return False
+
+    ids = np.full(n, -2, np.int32)
+    positions = np.full(n, -1, np.int32)
+    slot = 0
+    for q in range(tiles):
+        t0 = q * tile
+        live = min(tile, n - t0)
+        v = visited[t0:t0 + live]
+        fl = v & (best_len[t0:t0 + live] <= 0)
+        starts = v & wp[t0:t0 + live]
+        seg = np.cumsum(starts)
+        killed = np.zeros(tile + 1, bool)
+        killed[seg[fl]] = True
+        kill = (killed[seg] | ((seg == 0) & across(q, -1))
+                | ((seg == int(starts.sum())) & across(q, 1)))
+        emit = v & ((~fl & ~kill) | (starts & kill))
+        at = np.nonzero(emit)[0]
+        ids[slot:slot + len(at)] = np.where(kill[at], unk_id, best_id[t0 + at])
+        positions[slot:slot + len(at)] = t0 + at
+        slot += len(at)
+    return ids, positions, slot
+
+
+MODEL_CASES = ["n_1", "n_2049", "n_valid_below_n", "spacing_free_4_tiles", "all_space",
+               "q_5000", "punct_dense"]
+
+
+@pytest.mark.parametrize("tile", [64, stream_cases.TILE])
+@pytest.mark.parametrize("name", MODEL_CASES + sorted(COMMIT_CASES))
+def test_tile_walk_model_equals_jax(name, tile):
+    """The kernels' algorithm, modelled in numpy at the kernels' tile and
+    at a 64-position tile (every unit crosses tiles), equals the JAX
+    package's loop to the fixed point: ids, positions and count."""
+    if name in COMMIT_CASES:
+        cp, n_valid, max_len, best_id, best_len = COMMIT_CASES[name]
+        feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
+    else:
+        cp, n_valid, max_len = CASES[name]
+        feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
+        best_id, best_len = stream_cases.random_matches(np.random.default_rng(len(name)),
+                                                        feats.window.numpy())
+    ids, positions, count = tile_walk_model(best_id, best_len, feats, n_valid, UNK, tile)
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    assert count == int(want_count)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(positions, want_pos)

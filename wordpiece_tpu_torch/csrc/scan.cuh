@@ -1,8 +1,9 @@
 // A single-pass tile scan with decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back"), forward or
 // reverse, with a min or a sum operator, over a few channels at once (one
-// look-back warp each).  The kernels of csrc/text_features.cu (a reverse min
-// over three flags) and csrc/commit.cu (forward sums) use it.
+// look-back warp each), and a carry chain with the reset op.  The kernels
+// of csrc/text_features.cu (a reverse min over three flags) and
+// csrc/commit.cu (a forward sum, and the walk's carry chain) use them.
 //
 // How a kernel uses it:
 //  - every block takes a ticket from an atomic counter (TileScan::ticket):
@@ -24,6 +25,18 @@
 // orders a value against its flag.  The scratch is a 64-bit ticket, then
 // one status word a tile and channel: the caller zeroes it on the stream
 // before the launch (scan_scratch_bytes).
+//
+// The reset op (CarryChain): a carry that a tile either sets from its own
+// items, whatever came before it (a reset), passes on unchanged (the
+// identity), or computes from its predecessor's carry by a function that
+// is not known until then (the commit walk's exit from a tile inside a
+// unit longer than a tile).  A reset is published at once as an inclusive
+// prefix, the identity at once as an aggregate; a tile of the third kind
+// publishes its prefix once it has the carry in.  The carry into a tile
+// is found by a look-back of one warp that passes 32 identity tiles a
+// step and stops at the nearest prefix, so only runs of the third kind
+// are serial, one look-back a tile.  The scratch is a 64-bit ticket, then
+// one status word a tile (carry_scratch_bytes), zeroed by the caller.
 
 #pragma once
 
@@ -65,6 +78,52 @@ __device__ __forceinline__ unsigned long long load_status(const unsigned long lo
 __device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long w) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
 }
+
+// Bytes of scratch a carry chain over `tiles` tiles needs.
+inline size_t carry_scratch_bytes(long long tiles) {
+  return sizeof(unsigned long long) * (1 + (size_t)tiles);
+}
+
+struct CarryChain {
+  // This block's tile, in the order the blocks started (0 first); one
+  // thread calls it and shares the result.
+  static __device__ __forceinline__ int ticket(void* scratch) {
+    return (int)atomicAdd(static_cast<unsigned int*>(scratch), 1u);
+  }
+  static __device__ __forceinline__ unsigned long long* status(void* scratch) {
+    return static_cast<unsigned long long*>(scratch) + 1;
+  }
+  // Publishes tile q's carry out as an inclusive prefix (one thread).
+  static __device__ __forceinline__ void publish(void* scratch, int q, int carry) {
+    store_status(status(scratch) + q, status_word(kStatusPrefix, carry));
+  }
+  // Publishes that tile q passes its carry on unchanged (one thread).
+  static __device__ __forceinline__ void pass(void* scratch, int q) {
+    store_status(status(scratch) + q, status_word(kStatusAggregate, 0));
+  }
+  // The carry into tile q, in every lane of one whole warp: the nearest
+  // prefix before q past the tiles that pass theirs on, or `first` when
+  // every tile before q passes.
+  static __device__ int wait(void* scratch, int q, int first) {
+    const int lane = threadIdx.x & 31;
+    const unsigned long long* st = status(scratch);
+    for (long long base = (long long)q - 1;; base -= 32) {
+      const long long idx = base - lane;
+      // Read again until the nearest tile that does not pass is a prefix,
+      // or every one of the 32 passes.
+      for (;;) {
+        const unsigned long long w =
+            idx >= 0 ? load_status(st + idx) : status_word(kStatusPrefix, first);
+        const uint32_t state = (uint32_t)(w >> 32);
+        const unsigned stops = __ballot_sync(~0u, state != kStatusAggregate);
+        if (!stops) break;
+        const int near = __ffs(stops) - 1;
+        if (__shfl_sync(~0u, state, near) == kStatusPrefix)
+          return __shfl_sync(~0u, (int)(uint32_t)w, near);
+      }
+    }
+  }
+};
 
 template <int kThreads, int kChannels, class Op, bool kReverse>
 struct TileScan {

@@ -644,7 +644,7 @@ class LinearEncoder:
         visits it).  Raw codepoints pad as spaces (skipped by the walk).
         One shared pad length buckets both arrays.  Both are uint16 when
         values fit (pad included); the device widens.  max_chain is the
-        longest unit, which bounds the commit's doubling rounds."""
+        longest unit, which bounds the plain commit's doubling rounds."""
         n = int(cps.shape[0])
         m = self._merge
         np_ = _bucket(n)

@@ -27,9 +27,15 @@ suffix-array sweeps, the fast-stream engine's probes).
 
 `commit_with_positions` runs that plain version for CPU tensors and the
 hand-written CUDA kernels of csrc/commit.cu (ops/commit_cuda.py:
-doubling_rounds(max_chain) + 4 launches, the call counted once in
+KERNEL_LAUNCHES = 3 launches, the call counted once in
 commit_with_positions.launches) for CUDA tensors; never a fallback from
-one to the other.
+one to the other.  The kernels walk each tile of positions on its own,
+by pointer doubling in shared memory, with one integer carried from tile
+to tile, and always reach the fixed point: max_chain bounds the plain
+version's doubling rounds and does not reach them.  So the kernels equal
+the plain version whenever max_chain is at least the longest unit, which
+every caller passes; below that the plain version stops short of the
+fixed point and the kernels do not.
 """
 
 from __future__ import annotations
@@ -70,12 +76,13 @@ def commit_with_positions(
 
     max_chain bounds the positions of one unit (a maximal space-free run)
     that the walk can visit: the longest unit the caller put in the batch,
-    or n.  The round count is fixed from it on the host
-    (doubling_rounds), so no round waits for the device: every seed
-    is a unit start, the walk leaves a unit only for the next unit's
-    start (itself a seed) or the sentinel, and F strictly increases, so
-    the orbit of a seed inside its unit has at most max_chain positions.
-    Rounds past the fixed point mark nothing new.
+    or n.  The plain version fixes its round count from it on the host
+    (doubling_rounds), so no round waits for the device: every seed is a
+    unit start, the walk leaves a unit only for the next unit's start
+    (itself a seed) or the sentinel, and F strictly increases, so the
+    orbit of a seed inside its unit has at most max_chain positions.
+    Rounds past the fixed point mark nothing new.  The CUDA kernels run to
+    the fixed point and do not read it.
 
     The plain version for CPU tensors, the CUDA kernels for CUDA tensors
     (one call counted in commit_with_positions.launches)."""
@@ -89,8 +96,7 @@ def commit_with_positions(
                                            unk_id=unk_id, max_chain=max_chain)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = commit_cuda.launch(best_id, best_len, feats, int(n_valid), unk_id=int(unk_id),
-                             rounds=doubling_rounds(max_chain))
+    out = commit_cuda.launch(best_id, best_len, feats, int(n_valid), unk_id=int(unk_id))
     commit_with_positions.launches += 1
     return out
 

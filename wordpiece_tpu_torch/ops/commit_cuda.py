@@ -1,15 +1,19 @@
 """Binding of the hand-written CUDA kernels of the greedy commit.
 
 csrc/commit.cu holds the kernels that replace the XLA program
-wordpiece_tpu/ops/commit.py::commit_with_positions: the step function and
-seeds, one pointer-doubling round a launch (plain stores of round stamps,
-no scatter), the segments by a forward scan with decoupled look-back
-(csrc/scan.cuh) and the kill table, the emit scan with the compacted
-writes, and the fill of the tail.  They are compiled with nvcc for sm_90a
-into a library with a plain C interface at first use (ops/cuda_build.py)
-and loaded with ctypes; nothing is compiled at module import.  The public
-entry point is ops/commit.commit_with_positions, which calls `launch` for
-CUDA tensors and counts its calls.
+wordpiece_tpu/ops/commit.py::commit_with_positions: the walk (one block a
+tile: the orbits of F inside the tile by pointer doubling in shared
+memory, one integer carried between tiles through the carry chain of
+csrc/scan.cuh, visited and failed bits out), the emit (each segment's
+kill from the bits and the neighbouring tiles' bytes, then a forward scan
+with decoupled look-back for the slots and the compacted writes) and the
+fill of the tail: KERNEL_LAUNCHES kernels a call, run to the fixed point
+whatever the longest unit (max_chain does not reach them).  They are
+compiled with nvcc for sm_90a into a library with a plain C interface at
+first use (ops/cuda_build.py) and loaded with ctypes; nothing is compiled
+at module import.  The public entry point is
+ops/commit.commit_with_positions, which calls `launch` for CUDA tensors
+and counts its calls.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from .cuda_build import BUILD_DIR, CSRC_DIR, aligned16, build_library
 
 SOURCE = os.path.join(CSRC_DIR, "commit.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libcommit.so")
-EXTRA_LAUNCHES = 4  # kernels a call launches besides its doubling rounds
+KERNEL_LAUNCHES = 3  # kernels a call launches (walk, emit, fill), after one memset
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -58,7 +62,6 @@ def build(*, force: bool = False):
             ctypes.c_longlong,  # n
             ctypes.c_longlong,  # n_valid
             ctypes.c_int,  # unk_id
-            ctypes.c_int,  # doubling rounds
             _P,  # scratch
             _P,  # ids int32[n]
             _P,  # positions int32[n]
@@ -77,10 +80,10 @@ def _operand(name: str, t: torch.Tensor, dtype, size: int) -> torch.Tensor:
     return aligned16(t.to(dtype).contiguous())
 
 
-def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int, rounds: int):
-    """One call (rounds + EXTRA_LAUNCHES kernels) on the current stream of
-    the tensors' card.  Returns (ids int32[n], positions int32[n], count
-    int32 0-d), all on the card.  Raises on a refused launch."""
+def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int):
+    """One call (KERNEL_LAUNCHES kernels) on the current stream of the
+    tensors' card.  Returns (ids int32[n], positions int32[n], count int32
+    0-d), all on the card.  Raises on a refused launch."""
     n = int(best_id.shape[0])
     dev = best_id.device
     ops = [
@@ -99,8 +102,8 @@ def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int, rounds: int):
     with torch.cuda.device(dev):  # the C side launches on the current device
         scratch = torch.empty(lib.wp_commit_scratch_bytes(n), dtype=torch.uint8, device=dev)
         rc = lib.wp_commit(
-            *(t.data_ptr() for t in ops), n, int(n_valid), int(unk_id), int(rounds),
-            scratch.data_ptr(), ids.data_ptr(), positions.data_ptr(), count.data_ptr(),
+            *(t.data_ptr() for t in ops), n, int(n_valid), int(unk_id), scratch.data_ptr(),
+            ids.data_ptr(), positions.data_ptr(), count.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -2,10 +2,11 @@
 
 csrc/text_features.cu holds text_features_kernel, which replaces the XLA
 program wordpiece_tpu/ops/text_features.py::compute_features: one reverse
-scan with decoupled look-back (csrc/scan.cuh) that writes every feature
-in one pass.  It is compiled with nvcc for sm_90a into a library with a
-plain C interface at first use (ops/cuda_build.py) and loaded with
-ctypes; nothing is compiled at module import.  The public entry point is
+scan with decoupled look-back (csrc/scan.cuh) over 4,096-position tiles
+staged through shared memory, that writes every feature in one pass.  It
+is compiled with nvcc for sm_90a into a library with a plain C interface
+at first use (ops/cuda_build.py) and loaded with ctypes; nothing is
+compiled at module import.  The public entry point is
 ops/text_features.compute_features, which calls `launch` for CUDA tensors
 and counts its launches.
 """
