@@ -11,9 +11,10 @@ JAX package.  Phases, each fatal on failure:
  2. build: nvcc compiles csrc/word_kernel.cu (the match+commit kernel, the
     compaction kernel and the split match and commit kernels, one library),
     csrc/match_fast.cu (the fast-stream engine's probe),
-    csrc/text_features.cu (the features kernel) and csrc/commit.cu (the
-    commit kernels), all four at once; ptxas' registers, shared memory and
-    spills are printed for each;
+    csrc/text_features.cu (the features kernel), csrc/commit.cu (the
+    commit kernels) and csrc/linear_match.cu (the linear engine's match
+    over the suffix array), all five at once; ptxas' registers, shared
+    memory and spills are printed for each;
  3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
     multilingual, astral-plane, UNK-heavy, empty rows; a row count that
     ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
@@ -56,20 +57,27 @@ JAX package.  Phases, each fatal on failure:
     (compact-cap overflow: full_fetches > 0), the prefix-doubling fallback
     (a 5,000-symbol vocab with 49-90-codepoint tokens: nk > 24) and the
     MAX_SLOT_LEN scalar route (a 100-codepoint token: no device batch),
-    each against the oracle; the features and commit kernels must have
-    been called once per device batch, the word kernels and the probe not
-    at all;
+    each against the oracle; the features, match and commit kernels must
+    have been called once per device batch, the word kernels and the probe
+    not at all;
  7. linear numbers: the 10 MB en rate (min and median of 5) with its
     stage breakdown; one encode under torch.profiler (device time by op
-    class, launches per batch, busy share); and, at the en first batch's
+    class, launches per batch, busy share), which must show the match
+    kernels and no torch scan (cummax); and, at the en first batch's
     shapes, held to the oracle first, the device time of the whole batch
-    and of each part (sort, LCP and who-tables, features, sweeps and
-    match, commit: the last two the hand kernels) by CUDA events around
-    CUDA graph replays (the capture also proves the batch program has no
-    host sync), the fallback's suffix array and LCP over that batch's S,
-    and each part's bytes bound; at that batch's shapes the features and
-    commit kernels are first held to their plain versions (exact, whole
-    outputs, max_chain the batch's np and its longest unit);
+    and of each part (sort, LCP and who-tables, features, match, commit:
+    the last three the hand kernels; the match's plain version beside) by
+    CUDA events around CUDA graph replays (the capture also proves the
+    batch program has no host sync), the fallback's suffix array and LCP
+    over that batch's S, and each part's bytes bound; at that batch's
+    shapes the features and commit kernels are first held to their plain
+    versions (exact, whole outputs, max_chain the batch's np and its
+    longest unit).  Then the match kernels (match_from_sa) against
+    match_from_sa_plain, whole outputs, exactly, on the en first batch,
+    the doubling fallback's first batch, every bench/linear_cases.py case
+    and a max_len 96 case of 2^20 ranks; the kernels and memsets of one
+    call, read from a CUDA graph of it; the kernels' time by CUDA events
+    behind a spin kernel at the en first batch, beside their bound;
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
@@ -171,7 +179,7 @@ JAX package.  Phases, each fatal on failure:
     each kernel's launches in the dry run (rank 0's, every path summed)
     as `dryrun_launches`: the fused kernel, the compaction, the features,
     probe and commit kernels launch on one card, the split kernels only
-    from four.
+    from four, the linear match never (the dry run has no linear path).
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -544,6 +552,8 @@ def op_class(name: str) -> str:
         return "features kernel"
     if "commit_" in low and "_kernel" in low:
         return "commit kernels"
+    if "sa_match_" in low:
+        return "linear match kernels"
     if low.startswith(("memcpy", "memset")):
         return "copies (memcpy)"
     if "sort" in low or "radix" in low:
@@ -561,23 +571,60 @@ def op_class(name: str) -> str:
     return "elementwise"
 
 
-def linear_bytes(np_: int, nv_pad: int, nk: int, max_len: int, cap: int) -> dict:
+def linear_bytes(np_: int, nv_pad: int, nk: int, max_len: int, cap: int, match: int) -> dict:
     """Bytes of one linear batch, per part.  The sort: nk passes over the
     nm (int32 key, int32 element id) pairs, each read and written once.
-    The sweeps: the [max_len, nm] int32 matrices of this design (two kill
-    tables, four surviving-slot matrices), each written once.  The other
-    parts: their inputs read once and outputs written once."""
+    The match: `match`, the bytes match_bytes_ops counts on this batch's
+    inputs and outputs, whatever computes it; match_plain adds the
+    [max_len, nm] int32 matrices of the plain version (two kill tables,
+    four surviving-slot matrices), each written once.  The other parts:
+    their inputs read once and outputs written once."""
     nm = np_ + nv_pad
     sort = nk * nm * 8 * 2
-    sweeps = 6 * max_len * nm * 4
     return {
-        "batch": 2 * np_ * 2 + (nk + 3) * nv_pad * 4 + sort + sweeps + (1 + 2 * cap) * 4,
+        "batch": 2 * np_ * 2 + (nk + 3) * nv_pad * 4 + sort + (1 + 2 * cap) * 4,
         "sort": np_ * 2 + nk * nv_pad * 4 + sort + nm * 4,
         "lcp_who": nk * nm * 4 + nm * 8 + 3 * nv_pad * 4 + 4 * nm * 4,
         "features": np_ * 4 + np_ * (4 + 4 + 4 + 4 * 1),
-        "match": 5 * nm * 4 + np_ * 5 + sweeps + 2 * np_ * 4,
+        "match": match,
+        "match_plain": match + 6 * max_len * nm * 4,
         "commit": np_ * (5 * 4 + 2) + 2 * np_ * 4 + 4,
     }
+
+
+def match_bytes_ops(n_s: int, window, best_id, best_len, max_len: int) -> tuple[int, int]:
+    """Bytes the match must move on these inputs and outputs: lcp, who_len
+    and who_kind read at every rank (12 a rank); rank read at the text
+    positions only, window and wp read, best_id and best_len written (17 a
+    text position); who_id read only at the slots the outputs name,
+    counted as the distinct ids of the matched positions, no more than the
+    distinct slots read.  Operations: one test for each length a text
+    position's window reaches, in each direction; the sweeps' work at each
+    rank is left out, so the count is a floor."""
+    import torch
+
+    ids = int(torch.unique(best_id[best_len > 0]).numel())
+    reach = int(window.clamp(0, max_len).sum())
+    return 12 * n_s + 17 * int(window.shape[0]) + 4 * ids, 2 * reach
+
+
+def linear_match_check(args, max_len: int, label: str) -> dict:
+    """The match kernels against match_from_sa_plain on the card, whole
+    outputs, exactly, on args (rank, lcp, who_len, who_id, who_kind,
+    window, wp); one counted call.  Returns a report row."""
+    import torch
+
+    from wordpiece_tpu_torch.ops import linear_match as lm
+
+    launched = lm.match_from_sa.launches
+    got = lm.match_from_sa(*args, max_len=max_len)
+    want = lm.match_from_sa_plain(*args, max_len=max_len)
+    torch.cuda.synchronize()
+    if lm.match_from_sa.launches != launched + 1:
+        raise AssertionError(f"{label}: not one match call")
+    err = exact_diff(got, want, f"{label} match_from_sa")
+    return {"input": label, "n_s": int(args[0].shape[0]), "n_text": int(args[5].shape[0]),
+            "max_len": max_len, "matched": int((want[1] > 0).sum()), "max_abs_err": err}
 
 
 # ---- phases 8-10: the fast-stream engine ------------------------------------
@@ -1653,9 +1700,11 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine_word import WIDTHS, _narrow, compact_cap
     from wordpiece_tpu_torch.ops import commit_cuda as cc
+    from wordpiece_tpu_torch.ops import linear_match_cuda as lmc
     from wordpiece_tpu_torch.ops import match_fast_cuda as mfc
     from wordpiece_tpu_torch.ops import text_features_cuda as tfc
     from wordpiece_tpu_torch.ops.commit import commit_with_positions
+    from wordpiece_tpu_torch.ops.linear_match import match_from_sa, match_from_sa_plain
     from wordpiece_tpu_torch.ops.match_fast import match_positions as mp
     from wordpiece_tpu_torch.ops.text_features import compute_features
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
@@ -1675,7 +1724,8 @@ def main(argv=None) -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     # One nvcc per source, started together.
-    libs = {"word_kernel": wk, "match_fast": mfc, "text_features": tfc, "commit": cc}
+    libs = {"word_kernel": wk, "match_fast": mfc, "text_features": tfc, "commit": cc,
+            "linear_match": lmc}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(m.build, force=True) for m in libs.values()]:
             fut.result()
@@ -1785,7 +1835,7 @@ def main(argv=None) -> int:
 
     # ---- 4. main path -----------------------------------------------------
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
-    compute_features.launches = commit_with_positions.launches = 0
+    compute_features.launches = commit_with_positions.launches = match_from_sa.launches = 0
     captured: dict = {}
     dispatches = 0
     main_stats = {}
@@ -1902,8 +1952,9 @@ def main(argv=None) -> int:
                              f"{dispatches + api_launches} dispatches")
     if match_global:
         raise AssertionError("the bert-scale main path read its keys from global memory")
-    if mp.launches or compute_features.launches or commit_with_positions.launches:
-        raise AssertionError("the word engine's main path launched the fast-stream kernels")
+    if (mp.launches or compute_features.launches or commit_with_positions.launches
+            or match_from_sa.launches):
+        raise AssertionError("the word engine's main path launched the stream or linear kernels")
 
     # ---- 5. numbers -------------------------------------------------------
     timing = {}
@@ -1997,11 +2048,11 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.engine_linear import (
         _linear_batch_compact, _widen, neighbour_lcp, sort_elements, who_tables,
     )
-    from wordpiece_tpu_torch.ops.linear_match import match_from_sa
+    from wordpiece_tpu_torch.bench import linear_cases
     from wordpiece_tpu_torch.ops.suffix_array import lcp_clamped, suffix_array
 
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = mp.launches = 0
-    compute_features.launches = commit_with_positions.launches = 0
+    compute_features.launches = commit_with_positions.launches = match_from_sa.launches = 0
     lin_first: dict = {}
 
     def lin_recording(enc, lang):
@@ -2077,13 +2128,24 @@ def main(argv=None) -> int:
         raise AssertionError(f"linear char vocab: ok={ok}, full_fetches={enc.full_fetches}")
     lin_batches += enc.device_batches
 
-    # The prefix-doubling fallback (nk > 24).
+    # The prefix-doubling fallback (nk > 24); the match's inputs of its
+    # first batch are kept for phase 7 (the fallback reads the card back,
+    # so no sync check).
     d_lines, d_text = doubling_vocab(np.random.default_rng(7))
     d_vocab = parse_vocab(d_lines)
-    enc = wpt.make_encoder(d_vocab, "linear", device="cuda")
+    enc = d_enc = wpt.make_encoder(d_vocab, "linear", device="cuda")
+    d_orig = enc.doubling_inputs
+
+    def d_record(cps):
+        inputs = d_orig(cps)
+        lin_first.setdefault("doubling", inputs)
+        return inputs
+
+    enc.doubling_inputs = d_record
     t0 = time.perf_counter()
     got = enc.encode_bytes(d_text.encode())
     d_s = time.perf_counter() - t0
+    del enc.doubling_inputs
     want = loader.VocabHandle(d_vocab).encode(loader.decode_utf8(d_text.encode()))
     ok = enc._merge is None and np.array_equal(got, want)
     emit_json({"phase": "linear_doubling_fallback", "vocab": d_vocab.size, "max_len": enc.max_len,
@@ -2108,6 +2170,7 @@ def main(argv=None) -> int:
         raise AssertionError("linear MAX_SLOT_LEN route: wrong ids or a device batch ran")
     word_launches = mc.launches + wk.compact_from_counts.launches
     lin_launches = {"compute_features": compute_features.launches,
+                    "match_from_sa": match_from_sa.launches,
                     "commit_with_positions": commit_with_positions.launches}
     emit_json({"phase": "linear_main_path_batches", "device_batches": lin_batches,
                "word_kernel_launches": word_launches, "match_positions_launches": mp.launches,
@@ -2115,8 +2178,8 @@ def main(argv=None) -> int:
     if word_launches or mp.launches:
         raise AssertionError("the linear path launched the word engine's or the probe's kernels")
     if set(lin_launches.values()) != {lin_batches}:
-        raise AssertionError(f"not one features and one commit call per linear device batch: "
-                             f"{lin_launches}, {lin_batches} batches")
+        raise AssertionError(f"not one features, match and commit call per linear device "
+                             f"batch: {lin_launches}, {lin_batches} batches")
 
     # ---- 7. linear numbers ----------------------------------------------------
     enc_lin = lin_enc["en"]
@@ -2145,12 +2208,15 @@ def main(argv=None) -> int:
         c[0] += count
         c[1] += us
     kernels = sum(c for n, c, _ in rows if not n.lower().startswith(("memcpy", "memset")))
+    scans = [n for n, _, _ in rows if op_class(n).startswith("scans")]
     emit_json({"phase": "linear_profile", "corpus": "en_10MB", "card": card, "wall_ms": wall * 1e3,
                "device_busy_ms": None if busy_us is None else busy_us / 1e3,
                "device_busy_share": None if busy_us is None else busy_us / 1e3 / (wall * 1e3),
                "batches": batches, "kernel_launches_per_batch": kernels / max(batches, 1),
                "by_class_ms": {k: [c, us / 1e3] for k, (c, us) in sorted(classes.items())},
                "device_rows": rows[:25]})
+    if scans or "linear match kernels" not in classes:
+        raise AssertionError(f"the linear encode ran torch scans {scans} or no match kernel")
 
     # One batch at the en first batch's shapes, whole and by part, by CUDA
     # events around CUDA graph replays; held to the native oracle first.
@@ -2178,20 +2244,50 @@ def main(argv=None) -> int:
     lcp = neighbour_lcp(keys, sa, bits=m.bits, per=m.per, max_len=max_len)
     who = who_tables(sa, np_, *tabs[1:])
     feats = compute_features(cw, n, max_len)
-    best_m = match_from_sa(rank, lcp, *who, feats.window, feats.wp, max_len=max_len)
+    match_args = (rank, lcp, *who, feats.window, feats.wp)
+    best_m = match_from_sa(*match_args, max_len=max_len)
     # Both kernels against their plain versions at this batch's shapes.
     lin_row, _ = features_commit_check(cw, n, max_len, {"suffix_array": best_m},
                                        enc_lin._unk_id, {"n": np_, "longest_unit": max_chain},
                                        "linear_en_first_batch")
     emit_json({"phase": "features_commit_vs_plain", **lin_row})
+
+    # The match kernels against their plain version: this batch, the
+    # doubling fallback's first batch, the edge cases and 2^20 ranks.
+    d_args, d_feats = lin_first["doubling"]
+    lm_inputs = [("linear_en_first_batch", match_args, max_len),
+                 ("doubling_first_batch", (*d_args, d_feats.window, d_feats.wp), d_enc.max_len)]
+    for name, c in [*linear_cases.cases().items(), ("max_s_2^20", linear_cases.max_s_case())]:
+        lm_inputs.append((name, [torch.from_numpy(c[k]).to(dev) for k in linear_cases.FIELDS],
+                          c["max_len"]))
+    lm_err = 0
+    for name, args, ml in lm_inputs:
+        row = linear_match_check(args, ml, name)
+        lm_err = max(lm_err, row["max_abs_err"])
+        emit_json({"phase": "linear_match_vs_plain", **row})
+    lm_nodes = launches_per_call(lambda: match_from_sa(*match_args, max_len=max_len))
+    _, lm_rows, _ = device_profile(lambda: match_from_sa(*match_args, max_len=max_len), None)
+    lm_b, lm_o = match_bytes_ops(int(rank.shape[0]), feats.window, *best_m, max_len)
+    lm_bound, lm_by = bound_ms(lm_b, lm_o)
+    lm_timing = {"ms": device_ms(lambda: match_from_sa(*match_args, max_len=max_len), 200),
+                 "plain_ms": graph_ms(lambda: match_from_sa_plain(*match_args, max_len=max_len),
+                                      20),
+                 "bytes": lm_b, "ops": lm_o, "bound_ms": lm_bound, "bound_by": lm_by}
+    emit_json({"phase": "linear_match_time", "corpus": "en_10MB first batch", "card": card,
+               "kernel_launches": lmc.KERNEL_LAUNCHES, "graph_nodes_per_call": lm_nodes,
+               "device_us_by_kernel": {name: us for name, _, us in lm_rows},
+               "n_s": int(rank.shape[0]), "n_text": np_, "max_len": max_len, **lm_timing})
+    if lm_nodes != {"kernels": lmc.KERNEL_LAUNCHES, "memsets": 1, "other": 0}:
+        raise AssertionError(f"one match call is {lm_nodes}, not {lmc.KERNEL_LAUNCHES} kernels "
+                             "and one memset")
     parts = {
         "batch": run_batch,
         "sort": lambda: sort_elements(xw, m.tok_keys, bits=m.bits, per=m.per, nk=m.nk),
         "lcp_who": lambda: (neighbour_lcp(keys, sa, bits=m.bits, per=m.per, max_len=max_len),
                             who_tables(sa, np_, *tabs[1:])),
         "features": lambda: compute_features(cw, n, max_len),
-        "match": lambda: match_from_sa(rank, lcp, *who, feats.window, feats.wp,
-                                       max_len=max_len),
+        "match": lambda: match_from_sa(*match_args, max_len=max_len),
+        "match_plain": lambda: match_from_sa_plain(*match_args, max_len=max_len),
         "commit": lambda: commit_with_positions(*best_m, feats, n, unk_id=enc_lin._unk_id,
                                                 max_chain=max_chain),
     }
@@ -2211,7 +2307,7 @@ def main(argv=None) -> int:
     part_ms["suffix_array_lcp"] = cuda_ms(
         lambda: lcp_clamped(s_dev, suffix_array(s_dev)[0], clamp=max_len), 3
     )
-    nbytes = linear_bytes(np_, m.nv_pad, m.nk, max_len, cap)
+    nbytes = linear_bytes(np_, m.nv_pad, m.nk, max_len, cap, lm_b)
     nbytes["suffix_array_lcp"] = int(s_dev.numel()) * 4 * 4
     emit_json({"phase": "linear_batch_time", "corpus": "en_10MB", "card": card,
                "shapes": {"n": n, "np": np_, "nm": np_ + m.nv_pad, "nk": m.nk, "max_len": max_len,
@@ -2292,6 +2388,23 @@ def main(argv=None) -> int:
              "(doubling in shared memory, one carry a tile), the emit (forward sum scan with "
              "decoupled look-back), the fill"),
         )),
+        {
+            "name": "match_from_sa",
+            "route": "cuda",
+            "source": "wordpiece_tpu_torch/csrc/linear_match.cu",
+            "replaces": "wordpiece_tpu/ops/linear_match.py:87",
+            "layout": f"{lmc.KERNEL_LAUNCHES} launches a call after one memset: the tiles' "
+                      "latest pushes and kills, their carries, a warp a (direction, length) "
+                      f"walking {lmc.TILE}-rank tiles; no [max_len, n] buffer",
+            "launches": lin_launches["match_from_sa"],
+            "max_abs_err": lm_err,
+            "ms": lm_timing["ms"],
+            "plain_ms": lm_timing["plain_ms"],
+            "bound_ms": lm_timing["bound_ms"],
+            "bound_by": lm_timing["bound_by"],
+            "library_ms": None,
+            "dryrun_launches": dry["match_from_sa"],
+        },
         *({
             "name": name,
             "route": "cuda",

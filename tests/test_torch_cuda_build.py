@@ -8,7 +8,7 @@ import os
 import pytest
 
 from wordpiece_tpu_torch.ops import commit_cuda, cuda_build, match_fast_cuda, text_features_cuda
-from wordpiece_tpu_torch.ops import word_kernel_cuda
+from wordpiece_tpu_torch.ops import linear_match_cuda, word_kernel_cuda
 
 
 def _write(path, text, mtime):
@@ -49,7 +49,8 @@ def test_is_stale(tree, touched, stale):
 
 
 @pytest.mark.parametrize("mod", [text_features_cuda, commit_cuda, match_fast_cuda,
-                                 word_kernel_cuda], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+                                 word_kernel_cuda, linear_match_cuda],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_every_source_and_header_is_in_csrc(mod):
     """Each wrapper's source exists, and every header it includes lies in
     csrc/ beside it."""

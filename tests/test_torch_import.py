@@ -30,6 +30,7 @@ def test_import_with_jax_blocked():
         "import wordpiece_tpu_torch.engine_linear\n"
         "import wordpiece_tpu_torch.ops.word_kernel_cuda\n"
         "import wordpiece_tpu_torch.ops.commit, wordpiece_tpu_torch.ops.linear_match\n"
+        "import wordpiece_tpu_torch.ops.linear_match_cuda, wordpiece_tpu_torch.bench.linear_cases\n"
         "import wordpiece_tpu_torch.ops.suffix_array, wordpiece_tpu_torch.ops.text_features\n"
         "import wordpiece_tpu_torch.utils.profiling\n"
         "import wordpiece_tpu_torch.engine, wordpiece_tpu_torch.ops.match_fast\n"

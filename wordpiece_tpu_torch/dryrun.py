@@ -64,6 +64,7 @@ from .engine_linear import _longest_unit
 from .engine_word import resolve_device
 from .ops import commit as commit_ops
 from .ops import commit_cuda as cc
+from .ops import linear_match
 from .ops import match_fast as mf
 from .ops import match_fast_cuda as mfc
 from .ops import text_features as tf
@@ -88,7 +89,8 @@ COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast"
 KERNELS = {"word_match_commit": wk.word_match_commit_multi, "compact": wk.compact_from_counts,
            "word_match": wk.word_match_packed, "word_commit": wk.word_commit_packed,
            "match_positions": mf.match_positions, "compute_features": tf.compute_features,
-           "commit_with_positions": commit_ops.commit_with_positions}
+           "commit_with_positions": commit_ops.commit_with_positions,
+           "match_from_sa": linear_match.match_from_sa}
 # The stream path's kernels, each once an encode.
 STREAM_KERNELS = ("compute_features", "match_positions", "commit_with_positions")
 

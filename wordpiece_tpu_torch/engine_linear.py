@@ -1,6 +1,6 @@
 """Linear (suffix-array) encoder — the reference's second algorithm, on the
-card as torch ops and two hand-written kernels (the text features and the
-greedy commit).
+card as torch ops and three hand-written kernels (the text features, the
+match over the suffix array and the greedy commit).
 
 The reference builds S = text · sep · tok_1 · sep · … · tok_k · sep and
 suffix-sorts ALL of it (src/linear.cpp:87-101), even though only the k
@@ -10,8 +10,9 @@ sort element whose key is its own symbols, precomputed per vocabulary.
 
 Pipeline per batch (one asynchronous run of torch ops and kernels on the
 encoder's stream, one device-to-host copy of a compact vector; the
-features, csrc/text_features.cu, and the commit, csrc/commit.cu, are the
-CUDA kernels on a card and their plain versions on the CPU):
+features, csrc/text_features.cu, the match, csrc/linear_match.cu, and the
+commit, csrc/commit.cu, are the CUDA kernels on a card and their plain
+versions on the CPU):
   1. text suffixes' first-max_len symbols packed into nk int32 keys
      (dense per-VOCAB alphabet; text symbols foreign to the vocabulary
      collapse into one FOREIGN code — see correctness note below);
@@ -23,7 +24,8 @@ CUDA kernels on a card and their plain versions on the CPU):
   5. four surviving-slot scans (left/right x prefix/suffix kind) — the
      closed-form reformulation of the monotone stack
      (src/linear.cpp:161-213), yielding ALL tokens matching each text
-     suffix (ops/linear_match.py);
+     suffix (ops/linear_match.py; on a card the kernels of
+     csrc/linear_match.cu, which keep no [max_len, n] state);
   6. window-capped longest-match selection + the shared greedy commit
      (ops/commit.py), identical to the Fast engine's output.
 
@@ -102,17 +104,27 @@ def _linear_batch_core(
 
     x_dense/cps_pad may arrive narrowed (int16 holding uint16 bits); they
     are widened here, on the device."""
-    x_dense = _widen(x_dense)
-    keys, sa, rank = sort_elements(x_dense, tok_keys, bits=bits, per=per, nk=nk)
-    lcp = neighbour_lcp(keys, sa, bits=bits, per=per, max_len=max_len)
-    who_len, who_id, who_kind = who_tables(sa, x_dense.shape[0], tok_len, tok_id, tok_kind)
-    feats = compute_features(_widen(cps_pad), n_text, max_len)
-    best_id, best_len = match_from_sa(
-        rank, lcp, who_len, who_id, who_kind, feats.window, feats.wp, max_len=max_len
+    sa_tables, feats = batch_match_inputs(
+        x_dense, cps_pad, n_text, tok_keys, tok_len, tok_id, tok_kind,
+        bits=bits, per=per, nk=nk, max_len=max_len,
     )
+    best_id, best_len = match_from_sa(*sa_tables, feats.window, feats.wp, max_len=max_len)
     return commit_ops.commit_with_positions(
         best_id, best_len, feats, n_text, unk_id=unk_id, max_chain=max_chain
     )
+
+
+def batch_match_inputs(x_dense, cps_pad, n_text: int, tok_keys, tok_len, tok_id, tok_kind, *,
+                       bits: int, per: int, nk: int, max_len: int):
+    """The batch program up to the match: the sort, the LCP, the
+    who-tables and the text features.  Returns ((rank, lcp, who_len,
+    who_id, who_kind), feats), the suffix-array arguments of
+    match_from_sa and the features whose window and wp it takes."""
+    x_dense = _widen(x_dense)
+    keys, sa, rank = sort_elements(x_dense, tok_keys, bits=bits, per=per, nk=nk)
+    lcp = neighbour_lcp(keys, sa, bits=bits, per=per, max_len=max_len)
+    who = who_tables(sa, x_dense.shape[0], tok_len, tok_id, tok_kind)
+    return (rank, lcp, *who), compute_features(_widen(cps_pad), n_text, max_len)
 
 
 def sort_elements(x_dense: torch.Tensor, tok_keys: torch.Tensor, *, bits: int, per: int, nk: int):
@@ -382,11 +394,14 @@ class LinearEncoder:
     # concatenation.
     MAX_S = 1 << 20
 
-    # The surviving-slot sweeps materialize [max_len, n] state, so a
+    # The plain surviving-slot sweeps materialize [max_len, n] state, so a
     # vocabulary with very long tokens (the reference's 10M-char stress
     # splits produce multi-thousand-char tokens, tests/tests.cpp:264-272)
-    # would blow device memory.  Such vocabs route to the native scalar
-    # encoder over deduped units — identical output semantics, host path.
+    # would blow memory.  Such vocabs route to the native scalar encoder
+    # over deduped units — identical output semantics, host path.  The
+    # CUDA match (csrc/linear_match.cu) keeps no such state; it takes
+    # max_len up to this same bound, the JAX package's, so both packages
+    # route the same vocabularies.
     MAX_SLOT_LEN = 96
 
     @property
@@ -715,6 +730,24 @@ class LinearEncoder:
         x token lengths where the packed k-gram keys would degenerate).
         Runs on the current stream; reads the ranks back to the host."""
         n = int(cps.shape[0])
+        sa_tables, feats = self.doubling_inputs(cps)
+        best_id, best_len = match_from_sa(*sa_tables, feats.window, feats.wp,
+                                          max_len=self.max_len)
+        self.device_batches += 1
+        ids, positions, count = commit_ops.commit_with_positions(
+            best_id, best_len, feats, n, unk_id=self._unk_id, max_chain=_longest_unit(cps)
+        )
+        if with_positions:
+            return ids, positions, count
+        return ids[: int(count)].cpu().numpy()
+
+    def doubling_inputs(self, cps: np.ndarray):
+        """The fallback batch up to the match, on the encoder's device: the
+        suffix array and LCP of doubling_string(cps), the who-tables at the
+        tokens' start ranks (read back to the host) and the text features.
+        Returns ((rank, lcp, who_len, who_id, who_kind), feats), as
+        batch_match_inputs."""
+        n = int(cps.shape[0])
         s_host = self.doubling_string(cps)
         n_s = s_host.shape[0]
 
@@ -738,14 +771,4 @@ class LinearEncoder:
         cps_pad = np.full(_bucket(n), 32, dtype=np.int32)
         cps_pad[:n] = cps
         feats = compute_features(dev(cps_pad), n, self.max_len)
-        best_id, best_len = match_from_sa(
-            rank, lcp, dev(who_len), dev(who_id), dev(who_kind), feats.window, feats.wp,
-            max_len=self.max_len,
-        )
-        self.device_batches += 1
-        ids, positions, count = commit_ops.commit_with_positions(
-            best_id, best_len, feats, n, unk_id=self._unk_id, max_chain=_longest_unit(cps)
-        )
-        if with_positions:
-            return ids, positions, count
-        return ids[: int(count)].cpu().numpy()
+        return (rank, lcp, dev(who_len), dev(who_id), dev(who_kind)), feats

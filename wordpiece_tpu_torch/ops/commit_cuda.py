@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-from .cuda_build import BUILD_DIR, CSRC_DIR, aligned16, build_library
+from .cuda_build import BUILD_DIR, CSRC_DIR, build_library, operand
 
 SOURCE = os.path.join(CSRC_DIR, "commit.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libcommit.so")
@@ -72,14 +72,6 @@ def build(*, force: bool = False):
         return lib
 
 
-def _operand(name: str, t: torch.Tensor, dtype, size: int) -> torch.Tensor:
-    """t as the kernel reads it: contiguous, 16-byte aligned, of `dtype`
-    and `size` elements; raises on another shape."""
-    if t.dim() != 1 or t.shape[0] != size:
-        raise ValueError(f"{name}: expected [{size}], got {list(t.shape)}")
-    return aligned16(t.to(dtype).contiguous())
-
-
 def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int):
     """One call (KERNEL_LAUNCHES kernels) on the current stream of the
     tensors' card.  Returns (ids int32[n], positions int32[n], count int32
@@ -87,13 +79,13 @@ def launch(best_id, best_len, feats, n_valid: int, *, unk_id: int):
     n = int(best_id.shape[0])
     dev = best_id.device
     ops = [
-        _operand("best_id", best_id, torch.int32, n),
-        _operand("best_len", best_len, torch.int32, n),
-        _operand("window", feats.window, torch.int32, n),
-        _operand("ss", feats.ss, torch.int32, n + 1),
-        _operand("wnext", feats.wnext, torch.int32, n + 1),
-        _operand("space", feats.space, torch.bool, n),
-        _operand("wp", feats.wp, torch.bool, n),
+        operand("best_id", best_id, torch.int32, n),
+        operand("best_len", best_len, torch.int32, n),
+        operand("window", feats.window, torch.int32, n),
+        operand("ss", feats.ss, torch.int32, n + 1),
+        operand("wnext", feats.wnext, torch.int32, n + 1),
+        operand("space", feats.space, torch.bool, n),
+        operand("wp", feats.wp, torch.bool, n),
     ]
     ids = torch.empty(n, dtype=torch.int32, device=dev)
     positions = torch.empty(n, dtype=torch.int32, device=dev)

@@ -75,6 +75,14 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def operand(name: str, t, dtype, size: int):
+    """t as a kernel reads it: one-dimensional, contiguous, 16-byte aligned,
+    of `dtype` and `size` elements; raises on another shape."""
+    if t.dim() != 1 or t.shape[0] != size:
+        raise ValueError(f"{name}: expected [{size}], got {list(t.shape)}")
+    return aligned16(t.to(dtype).contiguous())
+
+
 def build_library(source: str, library: str, *, force: bool = False):
     """Compile `source` into `library` (if the library is stale, see
     is_stale, or `force`) and load it.  Returns (the ctypes library,

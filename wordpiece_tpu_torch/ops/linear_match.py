@@ -23,11 +23,22 @@ values, so the id gather waits until after the per-text-position length
 selection — one gather per text position per kind.  The kill scan
 depends only on the LCP edges, so it is computed once per direction and
 shared by both kinds.
+
+`match_from_sa` runs the plain version, match_from_sa_plain (these torch
+ops, [max_len, n] matrices and all), for CPU tensors and the hand-written
+CUDA kernels of csrc/linear_match.cu (ops/linear_match_cuda.py:
+KERNEL_LAUNCHES = 3 launches, the call counted once in
+match_from_sa.launches) for CUDA tensors; never a fallback from one to the
+other.  The kernels keep each length's running maxima in registers and
+shared memory, tile by tile, with one carry a tile, direction and length
+between tiles, and write no [max_len, n] buffer.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import linear_match_cuda
 
 
 def _lens(max_len: int, device) -> torch.Tensor:
@@ -85,7 +96,42 @@ def match_from_sa(
     max_len: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (best_id, best_len) per text position (canonical window-capped
-    longest match), computed from the suffix array."""
+    longest match), computed from the suffix array: the plain version for
+    CPU tensors, the CUDA kernels for CUDA tensors (one call counted in
+    match_from_sa.launches; they take rank as a permutation and n_text <=
+    n_s, as every caller passes)."""
+    dev = rank.device
+    for name, t in (("lcp", lcp), ("who_len", who_len), ("who_id", who_id),
+                    ("who_kind", who_kind), ("window", window), ("wp", wp)):
+        if t.device != dev:
+            raise ValueError(f"rank on {dev}, {name} on {t.device}")
+    if dev.type == "cpu":
+        return match_from_sa_plain(rank, lcp, who_len, who_id, who_kind, window, wp,
+                                   max_len=max_len)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = linear_match_cuda.launch(rank, lcp, who_len, who_id, who_kind, window, wp,
+                                   max_len=int(max_len))
+    match_from_sa.launches += 1
+    return out
+
+
+match_from_sa.launches = 0
+
+
+def match_from_sa_plain(
+    rank: torch.Tensor,  # int32[n_s]: SA rank of every S position
+    lcp: torch.Tensor,  # int32[n_s]: lcp[r] between sa[r], sa[r+1]
+    who_len: torch.Tensor,  # int32[n_s]: at SA rank r, eligible token len (0 none)
+    who_id: torch.Tensor,  # int32[n_s]
+    who_kind: torch.Tensor,  # int32[n_s]: 1 prefix, 0 suffix (-1 none)
+    window: torch.Tensor,  # int32[n_text]
+    wp: torch.Tensor,  # bool[n_text]
+    *,
+    max_len: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """match_from_sa in PyTorch ops: the CPU's version, and what the
+    kernels are held to on the card."""
     n_s = rank.shape[0]
     n_text = window.shape[0]
     dev = rank.device
