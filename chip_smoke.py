@@ -76,8 +76,12 @@ JAX package.  Phases, each fatal on failure:
     match_from_sa_plain, whole outputs, exactly, on the en first batch,
     the doubling fallback's first batch, every bench/linear_cases.py case
     and a max_len 96 case of 2^20 ranks; the kernels and memsets of one
-    call, read from a CUDA graph of it; the kernels' time by CUDA events
-    behind a spin kernel at the en first batch, beside their bound;
+    call, read from a CUDA graph of it (KERNEL_LAUNCHES kernels, MEMSETS
+    memsets); the kernels' time by CUDA events behind a spin kernel at the
+    en first batch and at the 2^20 ranks, each beside its bound, its plain
+    version's time and its kernels' device time from a profile; with
+    --compare-linear-match DIR, the kernels of the checkout at DIR timed
+    beside these in turns on those two inputs;
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
@@ -625,6 +629,42 @@ def linear_match_check(args, max_len: int, label: str) -> dict:
     err = exact_diff(got, want, f"{label} match_from_sa")
     return {"input": label, "n_s": int(args[0].shape[0]), "n_text": int(args[5].shape[0]),
             "max_len": max_len, "matched": int((want[1] > 0).sum()), "max_abs_err": err}
+
+
+def linear_match_compare(other_root: str, card: str, inputs: dict) -> dict:
+    """The match kernels of another checkout (its csrc/linear_match.cu,
+    the same C interface) beside this one's, on the same inputs: both
+    exact against match_from_sa_plain, then each timed by device_ms in
+    turns (other, this, this, other) with its kernels' device us from a
+    profile.  inputs: name -> (args, max_len).  Returns a report line."""
+    import torch
+
+    from wordpiece_tpu_torch.ops import cuda_build
+    from wordpiece_tpu_torch.ops import linear_match_cuda as lmc
+    from wordpiece_tpu_torch.ops.linear_match import match_from_sa_plain
+
+    source = os.path.join(os.path.abspath(other_root), "wordpiece_tpu_torch", "csrc",
+                          "linear_match.cu")
+    other, _ = cuda_build.build_library(
+        source, os.path.join(cuda_build.BUILD_DIR, "liblinear_match_other.so"), force=True)
+    libs = {"other": lmc.bind(other), "this": lmc.build()}
+    out = {"phase": "linear_match_compare", "card": card, "other": source, "inputs": {}}
+    for name, (args, ml) in inputs.items():
+        want = match_from_sa_plain(*args, max_len=ml)
+        row = {}
+        for who, lib in libs.items():
+            got = lmc.launch(*args, max_len=ml, lib=lib)
+            torch.cuda.synchronize()
+            row[f"{who}_max_abs_err"] = exact_diff(got, want, f"{name} {who} linear match")
+            _, rows, _ = device_profile(lambda lib=lib: lmc.launch(*args, max_len=ml, lib=lib),
+                                        None)
+            row[f"{who}_device_us_by_kernel"] = {k: us for k, _, us in rows}
+        for who in ("other", "this", "this", "other"):
+            lib = libs[who]
+            row.setdefault(f"{who}_ms", []).append(
+                device_ms(lambda lib=lib: lmc.launch(*args, max_len=ml, lib=lib), 200))
+        out["inputs"][name] = row
+    return out
 
 
 # ---- phases 8-10: the fast-stream engine ------------------------------------
@@ -1681,7 +1721,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of wordpiece_tpu_torch on one GPU")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="also write the profiled encode's Chrome trace to PATH")
-    trace_path = ap.parse_args(argv).trace
+    ap.add_argument("--compare-linear-match", default=None, metavar="DIR",
+                    help="also time the linear match kernels of the checkout at DIR beside "
+                         "this one's, in turns, on the same inputs (phase 7)")
+    opts = ap.parse_args(argv)
+    trace_path, compare_linear_match = opts.trace, opts.compare_linear_match
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2266,20 +2310,39 @@ def main(argv=None) -> int:
         lm_err = max(lm_err, row["max_abs_err"])
         emit_json({"phase": "linear_match_vs_plain", **row})
     lm_nodes = launches_per_call(lambda: match_from_sa(*match_args, max_len=max_len))
-    _, lm_rows, _ = device_profile(lambda: match_from_sa(*match_args, max_len=max_len), None)
-    lm_b, lm_o = match_bytes_ops(int(rank.shape[0]), feats.window, *best_m, max_len)
-    lm_bound, lm_by = bound_ms(lm_b, lm_o)
-    lm_timing = {"ms": device_ms(lambda: match_from_sa(*match_args, max_len=max_len), 200),
-                 "plain_ms": graph_ms(lambda: match_from_sa_plain(*match_args, max_len=max_len),
-                                      20),
-                 "bytes": lm_b, "ops": lm_o, "bound_ms": lm_bound, "bound_by": lm_by}
-    emit_json({"phase": "linear_match_time", "corpus": "en_10MB first batch", "card": card,
-               "kernel_launches": lmc.KERNEL_LAUNCHES, "graph_nodes_per_call": lm_nodes,
-               "device_us_by_kernel": {name: us for name, _, us in lm_rows},
-               "n_s": int(rank.shape[0]), "n_text": np_, "max_len": max_len, **lm_timing})
-    if lm_nodes != {"kernels": lmc.KERNEL_LAUNCHES, "memsets": 1, "other": 0}:
+    if lm_nodes != {"kernels": lmc.KERNEL_LAUNCHES, "memsets": lmc.MEMSETS, "other": 0}:
         raise AssertionError(f"one match call is {lm_nodes}, not {lmc.KERNEL_LAUNCHES} kernels "
-                             "and one memset")
+                             f"and {lmc.MEMSETS} memsets")
+    # Timed at the en first batch (plain version as a graph) and at 2^20
+    # ranks, max_len 96 (plain version by events: 38 ms a call).
+    _, max_s_args, max_s_len = lm_inputs[-1]
+    lm_times = {}
+    for name, args, ml, plain_ms in (
+        ("linear_en_first_batch", match_args, max_len, graph_ms),
+        ("max_s_2^20", max_s_args, max_s_len, lambda fn, n: cuda_ms(fn, min(n, 3))),
+    ):
+        def call(args=args, ml=ml):
+            return match_from_sa(*args, max_len=ml)
+
+        _, rows, _ = device_profile(call, None)
+        nb, no = match_bytes_ops(int(args[0].shape[0]), args[5], *call(), ml)
+        bound, by = bound_ms(nb, no)
+        lm_times[name] = {
+            "ms": device_ms(call, 200),
+            "plain_ms": plain_ms(lambda args=args, ml=ml: match_from_sa_plain(*args, max_len=ml),
+                                 20),
+            "bytes": nb, "ops": no, "bound_ms": bound, "bound_by": by,
+        }
+        emit_json({"phase": "linear_match_time", "input": name, "card": card,
+                   "kernel_launches": lmc.KERNEL_LAUNCHES, "graph_nodes_per_call": lm_nodes,
+                   "device_us_by_kernel": {k: us for k, _, us in rows},
+                   "n_s": int(args[0].shape[0]), "n_text": int(args[5].shape[0]), "max_len": ml,
+                   **lm_times[name]})
+    lm_timing = lm_times["linear_en_first_batch"]
+    if compare_linear_match:
+        emit_json(linear_match_compare(compare_linear_match, card, {
+            "linear_en_first_batch": (match_args, max_len),
+            "max_s_2^20": (max_s_args, max_s_len)}))
     parts = {
         "batch": run_batch,
         "sort": lambda: sort_elements(xw, m.tok_keys, bits=m.bits, per=m.per, nk=m.nk),
@@ -2307,7 +2370,7 @@ def main(argv=None) -> int:
     part_ms["suffix_array_lcp"] = cuda_ms(
         lambda: lcp_clamped(s_dev, suffix_array(s_dev)[0], clamp=max_len), 3
     )
-    nbytes = linear_bytes(np_, m.nv_pad, m.nk, max_len, cap, lm_b)
+    nbytes = linear_bytes(np_, m.nv_pad, m.nk, max_len, cap, lm_timing["bytes"])
     nbytes["suffix_array_lcp"] = int(s_dev.numel()) * 4 * 4
     emit_json({"phase": "linear_batch_time", "corpus": "en_10MB", "card": card,
                "shapes": {"n": n, "np": np_, "nm": np_ + m.nv_pad, "nk": m.nk, "max_len": max_len,
@@ -2393,9 +2456,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "wordpiece_tpu_torch/csrc/linear_match.cu",
             "replaces": "wordpiece_tpu/ops/linear_match.py:87",
-            "layout": f"{lmc.KERNEL_LAUNCHES} launches a call after one memset: the tiles' "
-                      "latest pushes and kills, their carries, a warp a (direction, length) "
-                      f"walking {lmc.TILE}-rank tiles; no [max_len, n] buffer",
+            "layout": f"{lmc.KERNEL_LAUNCHES} launches a call, {lmc.MEMSETS} memsets: a "
+                      "bitset of surviving lengths a rank and sweep (<= 3 words a kind), "
+                      f"scanned by its run summary over lanes, warps and {lmc.TILE}-rank "
+                      "tiles (tiles, carry, walk); q from push bit rows or the carried "
+                      "latest push; no loop over lengths, no atomics",
             "launches": lin_launches["match_from_sa"],
             "max_abs_err": lm_err,
             "ms": lm_timing["ms"],

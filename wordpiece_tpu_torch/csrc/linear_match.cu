@@ -5,71 +5,77 @@
 // sweeps (surviving_push :40, _lastkill :75) over [max_len, n] slot
 // matrices, and the window-capped merge (:117-145).  They compute the same
 // function as that program and as match_from_sa_plain in
-// ops/linear_match.py, whole outputs, and write no [max_len, n] buffer to
-// global memory.
+// ops/linear_match.py, whole outputs, and write no [max_len, n] buffer.
 //
 // What they compute.
 // Inputs: rank int32[n_s]; lcp int32[n_s], the LCP between ranks r and
 // r+1; who_len, who_id, who_kind int32[n_s]; window int32[n_text] and wp
-// bool[n_text].
-// Per rank and length: take each direction d (left: ascending ranks, the
-// edge entering r is lcp[r-1], with 1<<30 at r=0; right: descending ranks,
-// the edge entering r is lcp[r], with 1<<30 at the last rank), each kind k
-// (1 = prefix, 0 = suffix) and each length l = 1..max_len.  Then
-//  - lastpush is the latest rank q at or before r, in the sweep's
-//    direction, that pushes a token of kind k and length l; -1 if none;
-//  - lastkill is the latest rank at or before r whose entering edge is
-//    less than l; 0 if none, in the sweep's own coordinates (the right
-//    sweep's coordinate of rank r is last - r, last = n_s - 1);
-//  - the slot is lastpush if lastpush >= 0 && lastpush >= lastkill, and
-//    -1 otherwise.
-// Per text position t: r = rank[min(t, n_s-1)] and k = wp[t] ? 1 : 0.
-//  - L_d is the largest l <= window[t] whose slot is >= 0 in direction d,
-//    or 0 if none;
+// bool[n_text].  Two sweeps over the ranks: left ascending, where the edge
+// entering r is lcp[r-1] (none at r = 0), and right descending, where it
+// is lcp[r] (none at the last rank).  A rank pushes (kind, length) when
+// who_kind is 0 (suffix) or 1 (prefix) and 1 <= who_len <= max_len.
+// In JAX terms, for each sweep, kind k and length l, the slot at a rank is
+// lastpush (the latest rank at or before it, in the sweep's order, that
+// pushed (k, l)) when lastpush >= lastkill (the latest rank whose entering
+// edge is below l), and empty otherwise.  Per text position t, with
+// r = rank[t] and k = wp[t]:
+//  - L_d is the largest l <= window[t] whose slot at r is not empty in
+//    sweep d, or 0;
 //  - best_len = max(L_left, L_right);
-//  - q is the right sweep's slot, converted back to a true rank, when
-//    L_right == best_len > 0; otherwise q is the left sweep's slot;
+//  - q is the right sweep's slot when L_right == best_len > 0 (the right
+//    sweep wins ties), else the left sweep's;
 //  - best_id = who_id[q], or -1 when best_len == 0.
-// Every one of the n_text positions is written.  This cap-then-merge form
-// equals the JAX merge: a right slot exists at the best length exactly
-// when L_right is that length, and there the right slot wins.
-// Preconditions (every caller's inputs meet them): n_text <= n_s, rank a
-// permutation of 0..n_s-1, 1 <= max_len <= kMaxLen = 96, the engine's
-// MAX_SLOT_LEN (it routes vocabularies with longer tokens to the host).
+// Every one of the n_text positions is written.  Preconditions (every
+// caller's inputs meet them): n_text <= n_s, rank a permutation of
+// 0..n_s-1, 1 <= max_len <= kMaxLen = 96, the engine's MAX_SLOT_LEN (it
+// routes vocabularies with longer tokens to the host).
+//
+// The bitset form.  The lengths whose slot is not empty at a rank are the
+// reference's get_closest stack (src/linear.cpp:161-213): surviving
+// tokens are nested prefixes of the current suffix, so the stack is a set
+// of lengths, at most 96: W = ceil(max_len / 32) 32-bit words a kind
+// (bit l - 1 for length l).  One rank step, with entering edge e, is
+//     S_k = (S_k & low(e)) | push_k,    low(e) = the lengths 1..e,
+// the kill before the push, so a push survives its own edge: lastpush >=
+// lastkill holds with equality when both are this rank.  A length l stays
+// in S_k exactly while no edge below l has entered since its latest push,
+// which is JAX's condition.  A text rank reads L_d = the highest bit of
+// S_k & low(window), and q = the latest push of (k, L_d), which survives
+// because any push of that length does (surviving_push's docstring).
+//
+// The summary operator.  A run of ranks acts on S as S -> (S & low(E)) |
+// M: E the least entering edge of the run, M_0, M_1 its sets at its end
+// starting from none.  A then B is (min(E_A, E_B), (M_A & low(E_B)) | M_B),
+// associative, with identity (kEdgeNone, 0, 0).  It combines ranks across
+// a warp by a 5-step shuffle scan, warps across a tile in shared memory,
+// and tiles by the carry: 1 + 2W words a direction.
+//
+// The kernels, one rank a thread, kTile ranks a block:
+//  - sa_match_tiles_kernel: the inverse map text[rank[t]] = (t, window,
+//    kind) for every t < n_s (-1 past n_text: no memset), and each tile's
+//    summary in both sweeps and its latest push of each (kind, length) in
+//    each sweep (its highest and its lowest pushing rank);
+//  - sa_match_carry_kernel: those scanned over the tiles in each sweep's
+//    order (the summaries by the operator, the pushes by max) into the
+//    exclusive carry that enters each tile;
+//  - sa_match_walk_kernel: each rank's set after its own step in both
+//    sweeps (the tile's carry, the earlier warps, the warp scan), the
+//    text rank's L_left and L_right from those registers, and q for the
+//    winning sweep only: from a bit row of the tile's pushes of (k, L)
+//    (one bit a rank, one word a warp, a word of non-empty words a row)
+//    or, where the tile has none on that side, from the carry.  No
+//    atomics, no loop over lengths: a rank's work is O(W).
+// Launches a call: 3, no memset; nothing reads the card back.
 //
 // What bounds it on this card: latency, not bytes.  The function must read
-// lcp, who_len and who_kind at every rank (12 bytes a rank), rank, window
-// and wp at the text positions (9 bytes a text position) and who_id only
-// at the slots it picks, and write the two outputs (8 bytes a text
-// position): at the linear en first batch's shapes about 2.3 MB, under a
-// microsecond at 3.35 TB/s.
-// The work is a scan of 2 * max_len running maxima (push positions by
-// kind, kill positions) along each direction, each carried across the
-// whole rank order.  The design keeps every length's state in registers
-// and shared memory and moves only 6 * max_len int32 a tile between its
-// kernels:
-//  - sa_match_tiles_kernel, one block a tile of kTile ranks: the inverse
-//    map text_at[rank[t]] = t, and the tile's aggregates, for each
-//    direction and length the latest push position of each kind and the
-//    latest kill position in the tile (-1 if none): pushes by shared
-//    atomics, kills by one shared atomic for each rank whose edge is below
-//    every later edge of its warp, then a prefix max over edge values;
-//  - sa_match_carry_kernel: each column of those aggregates (direction,
-//    part, length) scanned over the tiles in its sweep's order into the
-//    exclusive carry that enters each tile (pushes seeded -1, kills 0); a
-//    block takes 32 columns and splits the tiles into 32 segments;
-//  - sa_match_walk_kernel, one block a tile: each rank's edges, push and
-//    text position (window, kind) packed into one word in shared memory;
-//    each warp takes (direction, length) tasks: its 32 lanes walk 16
-//    ranks each in the sweep's order, a warp max scan between the lanes,
-//    seeded with the tile's carry, and every text rank whose window
-//    reaches the length keeps the largest (length, direction, slot) by a
-//    64-bit shared atomic max, so the longest length wins and, at equal
-//    length, the right sweep.  A length no rank of the tile reaches, or
-//    with no push in the tile and no carried push alive, is skipped.  Then
-//    each text rank writes (who_id[q], best_len) at its text position.
-// Launches a call: 3, after one memset (text_at); nothing reads the card
-// back.
+// lcp, who_len and who_kind at every rank, rank, window and wp at the
+// text positions and who_id at the slots it picks, and write the two
+// outputs: at the linear en first batch's shapes about 2.3 MB, under a
+// microsecond at 3.35 TB/s.  The call is three dependent launches of a
+// few hundred blocks each, each a chain of global loads, block barriers
+// and shuffles; the tiles' summaries and push tables (7 + 2 max_len int32
+// a tile and direction, written, scanned and read once) are the only
+// state between them.
 
 #include <cuda_runtime.h>
 
@@ -79,35 +85,154 @@
 
 namespace {
 
-constexpr int kChunk = 16;          // ranks a lane walks in a task
-constexpr int kTile = 32 * kChunk;  // ranks a block: one warp covers a tile
-constexpr int kThreads = kTile;     // one rank a thread outside the walk
+constexpr int kTile = 512;          // ranks a block, one a thread
+constexpr int kThreads = kTile;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLen = 96;         // MAX_SLOT_LEN; a length fits 7 bits of the rank word
+constexpr int kRowWords = kTile / 32;  // words of a push bit row: one a warp
+constexpr int kMaxLen = 96;         // MAX_SLOT_LEN: three 32-bit words a kind
 constexpr int kEdgeNone = 255;      // a clamped edge: kills no length
-constexpr int kParts = 3;           // push of kind 0, push of kind 1, kill
-constexpr int kCarryCols = 32;      // carry columns a block, one a lane
-constexpr int kCarrySegs = 32;      // tile segments a carry block
+constexpr int kSumWords = 7;        // a summary in global memory: E, 3 words a kind
+constexpr int kCarryCols = 32;      // push columns a carry block, one a lane
+constexpr int kCarrySegs = 32;      // tile segments a carry block, one a warp
+constexpr int kCarryThreads = kCarryCols * kCarrySegs;
+constexpr int kCarryCache = 8;      // a segment's first pushes kept in registers
 
-// The rank word: bits 0-7 the left edge, 8-15 the right edge (both clamped
-// to 0..kEdgeNone), 16-22 the pushed length (0 none), 23 its kind, 24-30
-// the text position's window clamped to 0..max_len (0 for a rank with no
-// text position), 31 its kind.
 __device__ __forceinline__ int clamp_edge(int e) {
   return e < 0 ? 0 : (e > kEdgeNone ? kEdgeNone : e);
 }
 
-struct RankIn {
+// Word i of low(e): the lengths 32i + 1 .. min(e, 32i + 32), the low
+// min(e - 32i, 32) bits (the funnel shift clamps at 32).
+__device__ __forceinline__ uint32_t low_word(int e, int i) {
+  return __funnelshift_lc(~0u, 0u, max(e - 32 * i, 0));
+}
+
+// A run of ranks: its least entering edge and its sets of surviving
+// lengths by kind, starting from none.
+template <int W>
+struct Sum {
+  int e;
+  uint32_t m[2][W];
+};
+
+template <int W>
+__device__ __forceinline__ Sum<W> identity() {
+  Sum<W> s;
+  s.e = kEdgeNone;
+#pragma unroll
+  for (int i = 0; i < W; ++i) s.m[0][i] = s.m[1][i] = 0;
+  return s;
+}
+
+// a then b.
+template <int W>
+__device__ __forceinline__ Sum<W> combine(const Sum<W>& a, const Sum<W>& b) {
+  Sum<W> c;
+  c.e = min(a.e, b.e);
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t keep = low_word(b.e, i);
+    c.m[0][i] = (a.m[0][i] & keep) | b.m[0][i];
+    c.m[1][i] = (a.m[1][i] & keep) | b.m[1][i];
+  }
+  return c;
+}
+
+// The sets S after the run s.
+template <int W>
+__device__ __forceinline__ void apply(uint32_t (&S)[2][W], const Sum<W>& s) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t keep = low_word(s.e, i);
+    S[0][i] = (S[0][i] & keep) | s.m[0][i];
+    S[1][i] = (S[1][i] & keep) | s.m[1][i];
+  }
+}
+
+template <int W, bool kUp>
+__device__ __forceinline__ Sum<W> shfl(const Sum<W>& s, int d) {
+  Sum<W> o;
+  o.e = kUp ? __shfl_up_sync(~0u, s.e, d) : __shfl_down_sync(~0u, s.e, d);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      o.m[k][i] = kUp ? __shfl_up_sync(~0u, s.m[k][i], d) : __shfl_down_sync(~0u, s.m[k][i], d);
+  return o;
+}
+
+// Inclusive scan over the warp in the left sweep's order (lane 0 first):
+// lane 31 ends with the warp's summary.
+template <int W>
+__device__ __forceinline__ Sum<W> scan_left(Sum<W> s, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Sum<W> o = shfl<W, true>(s, d);
+    if (lane >= d) s = combine(o, s);
+  }
+  return s;
+}
+
+// The same in the right sweep's order (lane 31 first): lane 0 ends with it.
+template <int W>
+__device__ __forceinline__ Sum<W> scan_right(Sum<W> s, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Sum<W> o = shfl<W, false>(s, d);
+    if (lane + d < 32) s = combine(o, s);
+  }
+  return s;
+}
+
+// Lane j < n holding item j of a run of n summaries (the other lanes any
+// value): lane j gets the items before j composed, in the left order
+// (item 0 first) or the right one (item n - 1 first).
+template <int W>
+__device__ __forceinline__ Sum<W> exclusive(Sum<W> s, int lane, int n, bool right) {
+  if (lane >= n) s = identity<W>();
+  if (right) {
+    s = scan_right(s, lane);
+    s = shfl<W, false>(s, 1);  // lane n - 1 gets lane n's identity
+  } else {
+    s = scan_left(s, lane);
+    s = shfl<W, true>(s, 1);
+    if (lane == 0) s = identity<W>();
+  }
+  return s;
+}
+
+template <int W>
+__device__ __forceinline__ Sum<W> load_sum(const int* __restrict__ p) {
+  Sum<W> s;
+  s.e = p[0];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    s.m[0][i] = (uint32_t)p[1 + i];
+    s.m[1][i] = (uint32_t)p[4 + i];
+  }
+  return s;
+}
+
+template <int W>
+__device__ __forceinline__ void store_sum(int* __restrict__ p, const Sum<W>& s) {
+  p[0] = s.e;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[1 + i] = i < W ? (int)s.m[0][i] : 0;
+    p[4 + i] = i < W ? (int)s.m[1][i] : 0;
+  }
+}
+
+// A rank's entering edges in both sweeps (clamped to 0..kEdgeNone) and its
+// push (len 0: none); a rank past n_s has neither.
+struct Rank {
   int left, right, len, kind;
 };
 
-// Rank r's edges in both sweeps and its push (len 0: none); a rank past
-// n_s has neither.
-__device__ __forceinline__ RankIn rank_in(const int* __restrict__ lcp,
-                                          const int* __restrict__ who_len,
-                                          const int* __restrict__ who_kind, int r, int n_s,
-                                          int ml) {
-  RankIn in{kEdgeNone, kEdgeNone, 0, 0};
+__device__ __forceinline__ Rank rank_in(const int* __restrict__ lcp,
+                                        const int* __restrict__ who_len,
+                                        const int* __restrict__ who_kind, int r, int n_s, int ml) {
+  Rank in{kEdgeNone, kEdgeNone, 0, 0};
   if (r >= n_s) return in;
   in.left = r == 0 ? kEdgeNone : clamp_edge(lcp[r - 1]);
   in.right = r == n_s - 1 ? kEdgeNone : clamp_edge(lcp[r]);
@@ -119,258 +244,331 @@ __device__ __forceinline__ RankIn rank_in(const int* __restrict__ lcp,
   return in;
 }
 
+// The one-rank run of `in` in a sweep with entering edge e.
+template <int W>
+__device__ __forceinline__ Sum<W> rank_sum(const Rank& in, int e) {
+  Sum<W> s = identity<W>();
+  s.e = e;
+  const int b = in.len - 1;  // kind selected without indexing: no local memory
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t bit = in.len && b >> 5 == i ? 1u << (b & 31) : 0u;
+    s.m[0][i] = in.kind ? 0u : bit;
+    s.m[1][i] = in.kind ? bit : 0u;
+  }
+  return s;
+}
+
+// The tile's push bit rows, word-major: s_bits[w * rows + row], row =
+// kind * ml + len - 1, bit j of word w set when rank 32w + j of the tile
+// pushes (kind, len).  The lowest lane of each warp's group of equal
+// pushes writes the group's lanes; the caller has zeroed the rows.
+__device__ __forceinline__ void post_push_bits(uint32_t* __restrict__ s_bits, const Rank& in,
+                                               int ml, int rows, int lane, int warp) {
+  const int key = in.len ? in.kind * kMaxLen + in.len : -1;
+  const uint32_t same = __match_any_sync(~0u, key);
+  if (in.len && __ffs(same) - 1 == lane) s_bits[warp * rows + in.kind * ml + in.len - 1] = same;
+}
+
+template <int W>
 __global__ void __launch_bounds__(kThreads)
-    sa_match_tiles_kernel(const int* __restrict__ rank, const int* __restrict__ lcp,
+    sa_match_tiles_kernel(const int* __restrict__ rank, const int* __restrict__ window,
+                          const uint8_t* __restrict__ wp, const int* __restrict__ lcp,
                           const int* __restrict__ who_len, const int* __restrict__ who_kind,
-                          int n_s, int n_text, int ml, int* __restrict__ text_at,
+                          int n_s, int n_text, int ml, int2* __restrict__ text,
                           int* __restrict__ agg) {
-  __shared__ int s_push[2][2][kMaxLen];  // [direction][kind][l - 1]
-  __shared__ int s_kill_at[2][kMaxLen];  // [direction][edge], edges below ml
-  const int tid = threadIdx.x, lane = tid & 31;
-  for (int i = tid; i < 2 * 2 * kMaxLen; i += kThreads) (&s_push[0][0][0])[i] = -1;
-  for (int i = tid; i < 2 * kMaxLen; i += kThreads) (&s_kill_at[0][0])[i] = -1;
-  const long long t = (long long)blockIdx.x * kTile + tid;  // n_text <= n_s: tiles cover it
-  if (t < n_text) {
-    const int r = rank[t];
-    if (r >= 0 && r < n_s) text_at[r] = (int)t;
+  __shared__ uint32_t s_bits[kRowWords * 2 * kMaxLen];
+  __shared__ Sum<W> s_warp[2][kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile0 = blockIdx.x * kTile, rows = 2 * ml, last = n_s - 1;
+  for (int i = tid; i < kRowWords * rows; i += kThreads) s_bits[i] = 0;
+
+  // The inverse map: position t names rank[t]; every rank is named once,
+  // so positions past n_text write the ranks that have no text position.
+  const int t = tile0 + tid;
+  if (t < n_s) {
+    const int q = rank[t];
+    int2 v = make_int2(-1, 0);
+    if (t < n_text) {
+      const int w = window[t];
+      v = make_int2(t, (w < 0 ? 0 : (w > ml ? ml : w)) | (wp[t] ? 128 : 0));
+    }
+    if (q >= 0 && q < n_s) text[q] = v;
   }
+  const Rank in = rank_in(lcp, who_len, who_kind, tile0 + tid, n_s, ml);
+  __syncthreads();  // the rows are zero
+
+  post_push_bits(s_bits, in, ml, rows, lane, warp);
+  const Sum<W> sl = scan_left(rank_sum<W>(in, in.left), lane);
+  const Sum<W> sr = scan_right(rank_sum<W>(in, in.right), lane);
+  if (lane == 31) s_warp[0][warp] = sl;
+  if (lane == 0) s_warp[1][warp] = sr;
   __syncthreads();
 
-  const int last = n_s - 1;
-  const int r = blockIdx.x * kTile + tid;
-  const RankIn in = rank_in(lcp, who_len, who_kind, r, n_s, ml);
-  if (in.len) {
-    atomicMax(&s_push[0][in.kind][in.len - 1], r);
-    atomicMax(&s_push[1][in.kind][in.len - 1], last - r);
-  }
-  // A rank is the latest kill of some length in its tile only if its edge
-  // is below every edge after it in its sweep's order; within the warp,
-  // only such ranks post.  Left: later ranks are higher lanes.
-  int after = in.left;
+  const int cols = kSumWords + rows;
+  int* out = agg + (long long)blockIdx.x * 2 * cols;
+  if (tid < rows) {
+    // The row's latest push in each sweep: its highest and lowest rank.
+    int hi = -1, lo = -1;
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_down_sync(~0u, after, d);
-    if (lane + d < 32) after = min(after, o);
+    for (int w = 0; w < kRowWords; ++w) {
+      const uint32_t b = s_bits[w * rows + tid];
+      if (b) {
+        hi = 32 * w + 31 - __clz(b);
+        if (lo < 0) lo = 32 * w + __ffs(b) - 1;
+      }
+    }
+    out[kSumWords + tid] = hi < 0 ? -1 : tile0 + hi;
+    out[cols + kSumWords + tid] = lo < 0 ? -1 : last - (tile0 + lo);
   }
-  after = __shfl_down_sync(~0u, after, 1);
-  if (lane == 31) after = kEdgeNone + 1;
-  if (in.left < ml && in.left < after) atomicMax(&s_kill_at[0][in.left], r);
-  // Right: the sweep descends, so later ranks are lower lanes.
-  int before = in.right;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(~0u, before, d);
-    if (lane >= d) before = min(before, o);
-  }
-  before = __shfl_up_sync(~0u, before, 1);
-  if (lane == 0) before = kEdgeNone + 1;
-  if (in.right < ml && in.right < before) atomicMax(&s_kill_at[1][in.right], last - r);
-  __syncthreads();
-
-  // The tile's aggregates, [direction][part][l - 1]: the kill of length l
-  // is the latest position whose edge is below l.
-  int* out = agg + (long long)blockIdx.x * 2 * kParts * ml;
-  for (int i = tid; i < 2 * ml; i += kThreads) {
-    const int dir = i / ml, l = i - dir * ml + 1;
-    int kill = -1;
-    for (int e = 0; e < l; ++e) kill = max(kill, s_kill_at[dir][e]);
-    int* o = out + dir * kParts * ml;
-    o[l - 1] = s_push[dir][0][l - 1];
-    o[ml + l - 1] = s_push[dir][1][l - 1];
-    o[2 * ml + l - 1] = kill;
+  if (warp == 0) {  // the tile's summaries: its warps composed in each sweep
+    const Sum<W> l = scan_left(lane < kWarps ? s_warp[0][lane] : identity<W>(), lane);
+    const Sum<W> r = scan_right(lane < kWarps ? s_warp[1][lane] : identity<W>(), lane);
+    if (lane == 31) store_sum(out, l);
+    if (lane == 0) store_sum(out + cols, r);
   }
 }
 
-// Column c of the aggregates (c = direction * 3 ml + part * ml + l - 1),
-// scanned over the tiles in its sweep's order (the right sweep takes the
-// tiles last to first): carry[tile][c] is the max of the aggregates of
-// the tiles before, seeded -1 for pushes and 0 for kills.
-__global__ void __launch_bounds__(kCarryCols* kCarrySegs)
+// The tiles' aggregates scanned over the tiles in each sweep's order (the
+// right sweep takes them last to first) into exclusive carries, same
+// layout: [tile][direction][kSumWords + 2 ml].  Blocks 0 and 1 scan the
+// summaries of the left and the right sweep by the operator: a segment of
+// tiles a thread, then the warp scan and the warps' summaries scanned by
+// warp 0.  Each later block scans 32 push columns by max, seeded -1: a
+// segment of tiles a warp, its first kCarryCache values kept in registers.
+template <int W>
+__global__ void __launch_bounds__(kCarryThreads)
     sa_match_carry_kernel(const int* __restrict__ agg, int* __restrict__ carry, int tiles,
                           int ml) {
   __shared__ int s_seg[kCarrySegs][kCarryCols + 1];
-  const int lane = threadIdx.x % kCarryCols, seg = threadIdx.x / kCarryCols;
-  const int cols = 2 * kParts * ml;
-  const int c = blockIdx.x * kCarryCols + lane;
-  const bool live = c < cols;
-  const int dir = live ? c / (kParts * ml) : 0;
-  const int seed = c - dir * kParts * ml < 2 * ml ? -1 : 0;
-  const int per = (tiles + kCarrySegs - 1) / kCarrySegs;
-  const int a = min(seg * per, tiles), b = min(a + per, tiles);
-  int m = -1;
-  if (live) {
-#pragma unroll 4
+  __shared__ Sum<W> s_warp[kCarryThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cols = kSumWords + 2 * ml;
+
+  if (blockIdx.x < 2) {
+    const int dir = blockIdx.x;
+    const int per = (tiles + kCarryThreads - 1) / kCarryThreads;
+    const int a = min(tid * per, tiles), b = min(a + per, tiles);
+    Sum<W> s = identity<W>();
     for (int i = a; i < b; ++i) {
-      const int tile = dir == 0 ? i : tiles - 1 - i;
-      m = max(m, agg[(long long)tile * cols + c]);
+      const int tile = dir ? tiles - 1 - i : i;
+      s = combine(s, load_sum<W>(agg + ((long long)tile * 2 + dir) * cols));
     }
+    const Sum<W> before = exclusive(s, lane, 32, false);  // this warp's earlier threads
+    const Sum<W> incl = combine(before, s);
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const Sum<W> w = exclusive(s_warp[lane], lane, kCarryThreads / 32, false);
+      __syncwarp();
+      s_warp[lane] = w;
+    }
+    __syncthreads();
+    Sum<W> run = combine(s_warp[warp], before);
+    for (int i = a; i < b; ++i) {
+      const long long at = ((long long)(dir ? tiles - 1 - i : i) * 2 + dir) * cols;
+      const Sum<W> v = load_sum<W>(agg + at);
+      store_sum(carry + at, run);
+      run = combine(run, v);
+    }
+    return;
   }
-  s_seg[seg][lane] = m;
+
+  const int per = (tiles + kCarrySegs - 1) / kCarrySegs;
+  const int a = min(warp * per, tiles), b = min(a + per, tiles);
+  const int c = (blockIdx.x - 2) * kCarryCols + lane;  // dir * 2 ml + row
+  const bool live = c < 4 * ml;
+  const int dir = live ? c / (2 * ml) : 0;
+  const int col = kSumWords + (c - dir * 2 * ml);
+  auto at = [&](int i) { return ((long long)(dir ? tiles - 1 - i : i) * 2 + dir) * cols + col; };
+  int cache[kCarryCache];
+  int m = -1;
+#pragma unroll
+  for (int j = 0; j < kCarryCache; ++j) {
+    cache[j] = live && a + j < b ? agg[at(a + j)] : -1;
+    m = max(m, cache[j]);
+  }
+  if (live)
+    for (int i = a + kCarryCache; i < b; ++i) m = max(m, agg[at(i)]);
+  s_seg[warp][lane] = m;
   __syncthreads();
-  int run = seed;
-  for (int s = 0; s < seg; ++s) run = max(run, s_seg[s][lane]);
+  int run = -1;
+  for (int g = 0; g < warp; ++g) run = max(run, s_seg[g][lane]);
   if (!live) return;
-#pragma unroll 4
-  for (int i = a; i < b; ++i) {
-    const long long at = (long long)(dir == 0 ? i : tiles - 1 - i) * cols + c;
-    const int v = agg[at];
-    carry[at] = run;
+#pragma unroll
+  for (int j = 0; j < kCarryCache; ++j)
+    if (a + j < b) {
+      carry[at(a + j)] = run;
+      run = max(run, cache[j]);
+    }
+  for (int i = a + kCarryCache; i < b; ++i) {
+    const int v = agg[at(i)];
+    carry[at(i)] = run;
     run = max(run, v);
   }
 }
 
-// One (direction, length) task of a warp over the block's tile: lane i
-// walks chunk i (left) or 31 - i (right), kChunk ranks in the sweep's
-// order, twice: once for its chunk's latest pushes and kill, then, after
-// a warp max scan seeded with the tile's carry, for each rank's slot.
-__device__ __forceinline__ void walk_length(const uint32_t* __restrict__ s_word,
-                                            unsigned long long* __restrict__ s_best, int lane,
-                                            int dir, int l, int tile0, int last, int c0, int c1,
-                                            int ck) {
-  const int chunk = dir ? 31 - lane : lane;
-  const uint32_t* words = s_word + chunk * (kChunk + 1);
-  const int first = tile0 + chunk * kChunk;
-  const int shift = dir ? 8 : 0;
-  int p0 = -1, p1 = -1, k = -1;
+// The highest length of S & low(win), or 0.
+template <int W>
+__device__ __forceinline__ int longest(const uint32_t (&S)[W], int win) {
+  int L = 0;
 #pragma unroll
-  for (int j = 0; j < kChunk; ++j) {
-    const int i = dir ? kChunk - 1 - j : j;
-    const uint32_t w = words[i];
-    const int pos = dir ? last - (first + i) : first + i;
-    if ((int)((w >> 16) & 127) == l) {
-      if ((w >> 23) & 1)
-        p1 = pos;
-      else
-        p0 = pos;
-    }
-    if ((int)((w >> shift) & 255) < l) k = pos;
+  for (int i = W - 1; i >= 0; --i) {
+    const uint32_t a = S[i] & low_word(win, i);
+    if (a && !L) L = 32 * i + 32 - __clz(a);
   }
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int a0 = __shfl_up_sync(~0u, p0, d), a1 = __shfl_up_sync(~0u, p1, d);
-    const int ak = __shfl_up_sync(~0u, k, d);
-    if (lane >= d) {
-      p0 = max(p0, a0);
-      p1 = max(p1, a1);
-      k = max(k, ak);
-    }
-  }
-  int x0 = __shfl_up_sync(~0u, p0, 1), x1 = __shfl_up_sync(~0u, p1, 1);
-  int xk = __shfl_up_sync(~0u, k, 1);
-  if (lane == 0) x0 = x1 = xk = -1;
-  p0 = max(c0, x0);
-  p1 = max(c1, x1);
-  k = max(ck, xk);
-  const unsigned long long tag = (unsigned long long)l << 33 | (unsigned long long)dir << 32;
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j) {
-    const int i = dir ? kChunk - 1 - j : j;
-    const uint32_t w = words[i];
-    const int pos = dir ? last - (first + i) : first + i;
-    if ((int)((w >> 16) & 127) == l) {
-      if ((w >> 23) & 1)
-        p1 = pos;
-      else
-        p0 = pos;
-    }
-    if ((int)((w >> shift) & 255) < l) k = pos;
-    if ((int)((w >> 24) & 127) >= l) {
-      const int q = (w >> 31) ? p1 : p0;
-      unsigned long long* best = s_best + chunk * (kChunk + 1) + i;
-      const unsigned long long key = tag | (unsigned)q;
-      // The plain read races with other warps' atomics, harmlessly: a key
-      // only grows, so a stale read costs at most one atomicMax that
-      // changes nothing.
-      if (q >= 0 && q >= k && key > *best) atomicMax(best, key);
-    }
-  }
+  return L;
 }
 
+template <int W>
 __global__ void __launch_bounds__(kThreads, 2)
     sa_match_walk_kernel(const int* __restrict__ lcp, const int* __restrict__ who_len,
                          const int* __restrict__ who_id, const int* __restrict__ who_kind,
-                         const int* __restrict__ window, const uint8_t* __restrict__ wp,
-                         const int* __restrict__ text_at, const int* __restrict__ carry, int n_s,
+                         const int2* __restrict__ text, const int* __restrict__ carry, int n_s,
                          int ml, int* __restrict__ best_id, int* __restrict__ best_len) {
-  // Lane i's chunk of words starts at (kChunk + 1) * i: no bank conflict.
-  __shared__ uint32_t s_word[kTile + 32];
-  // (length, direction, slot) of each rank, padded as s_word.
-  __shared__ unsigned long long s_best[kTile + 32];
-  __shared__ int s_carry[2 * kParts * kMaxLen];
-  __shared__ uint32_t s_pushed[(kMaxLen + 31) / 32];  // bit l - 1: a push of length l
-  __shared__ int s_maxwin;
+  __shared__ uint32_t s_bits[kRowWords * 2 * kMaxLen];
+  __shared__ uint32_t s_rows[2 * kMaxLen];  // bit w: word w of the row is not empty
+  __shared__ Sum<W> s_warp[2][kWarps];
+  __shared__ uint32_t s_in[2][kWarps][2][W];  // the sets entering each warp, by sweep
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile0 = blockIdx.x * kTile;
-  const int last = n_s - 1;
-  const int cols = 2 * kParts * ml;
-  if (tid < (kMaxLen + 31) / 32) s_pushed[tid] = 0;
-  if (tid == 0) s_maxwin = 0;
-  for (int i = tid; i < cols; i += kThreads) s_carry[i] = carry[(long long)blockIdx.x * cols + i];
+  const int tile0 = blockIdx.x * kTile, rows = 2 * ml, last = n_s - 1;
+  const int cols = kSumWords + rows;
+  const int* cl = carry + (long long)blockIdx.x * 2 * cols;  // left; right at cl + cols
+  for (int i = tid; i < kRowWords * rows; i += kThreads) s_bits[i] = 0;
 
   const int r = tile0 + tid;
-  const RankIn in = rank_in(lcp, who_len, who_kind, r, n_s, ml);
-  const int t = r < n_s ? text_at[r] : -1;
-  int win = 0, tkind = 0;
-  if (t >= 0) {
-    const int w = window[t];
-    win = w < 0 ? 0 : (w > ml ? ml : w);
-    tkind = wp[t] != 0;
-  }
-  s_word[tid + tid / kChunk] = (uint32_t)in.left | (uint32_t)in.right << 8 |
-                               (uint32_t)in.len << 16 | (uint32_t)in.kind << 23 |
-                               (uint32_t)win << 24 | (uint32_t)tkind << 31;
-  s_best[tid + tid / kChunk] = 0;
-  __syncthreads();  // the flags are zero
-  const int wmax = __reduce_max_sync(~0u, win);
-  if (lane == 0 && wmax) atomicMax(&s_maxwin, wmax);
+  const Rank in = rank_in(lcp, who_len, who_kind, r, n_s, ml);
+  const int2 tx = r < n_s ? text[r] : make_int2(-1, 0);
+  uint32_t S[2][2][W];  // [sweep][kind]: warp 0's carried sets
+  if (warp == 0) {
 #pragma unroll
-  for (int b = 0; b < (kMaxLen + 31) / 32; ++b) {
-    const bool mine = in.len && (in.len - 1) >> 5 == b;
-    const uint32_t any = __reduce_or_sync(~0u, mine ? 1u << ((in.len - 1) & 31) : 0u);
-    if (lane == 0 && any) atomicOr(&s_pushed[b], any);
+    for (int d = 0; d < 2; ++d)
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        S[d][0][i] = (uint32_t)cl[d * cols + 1 + i];
+        S[d][1][i] = (uint32_t)cl[d * cols + 4 + i];
+      }
   }
+  __syncthreads();  // the rows are zero
+
+  post_push_bits(s_bits, in, ml, rows, lane, warp);
+  const Sum<W> sl = scan_left(rank_sum<W>(in, in.left), lane);
+  const Sum<W> sr = scan_right(rank_sum<W>(in, in.right), lane);
+  if (lane == 31) s_warp[0][warp] = sl;
+  if (lane == 0) s_warp[1][warp] = sr;
   __syncthreads();
 
-  const int maxwin = s_maxwin;
-  for (int task = warp; task < 2 * ml; task += kWarps) {
-    const int dir = task & 1, l = (task >> 1) + 1;
-    if (l > maxwin) break;  // a warp's lengths ascend
-    const int* cr = s_carry + dir * kParts * ml;
-    const int c0 = cr[l - 1], c1 = cr[ml + l - 1], ck = cr[2 * ml + l - 1];
-    const bool pushed = (s_pushed[(l - 1) >> 5] >> ((l - 1) & 31)) & 1u;
-    if (!pushed && !(c0 >= 0 && c0 >= ck) && !(c1 >= 0 && c1 >= ck)) continue;
-    walk_length(s_word, s_best, lane, dir, l, tile0, last, c0, c1, ck);
+  if (warp == 0) {  // the carry, then the warps before each warp
+    const Sum<W> l = exclusive(s_warp[0][lane & (kWarps - 1)], lane, kWarps, false);
+    const Sum<W> rr = exclusive(s_warp[1][lane & (kWarps - 1)], lane, kWarps, true);
+    apply(S[0], l);
+    apply(S[1], rr);
+    if (lane < kWarps)
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          s_in[0][lane][k][i] = S[0][k][i];
+          s_in[1][lane][k][i] = S[1][k][i];
+        }
   }
-  __syncthreads();
+  const int row_t = tid - (kThreads - 2 * kMaxLen);  // the rows' words, by the last warps
+  if (row_t >= 0 && row_t < rows) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int w = 0; w < kRowWords; ++w) any |= (s_bits[w * rows + row_t] != 0u) << w;
+    s_rows[row_t] = any;
+  }
+  __syncthreads();  // s_in, s_rows
+  // The sets after this rank: those entering its warp, then the warp scan.
+#pragma unroll
+  for (int d = 0; d < 2; ++d)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int i = 0; i < W; ++i) S[d][k][i] = s_in[d][warp][k][i];
+  apply(S[0], sl);
+  apply(S[1], sr);
 
-  if (t >= 0) {
-    const unsigned long long key = s_best[tid + tid / kChunk];
-    const int len = (int)(key >> 33);
-    int id = -1;
-    if (len) {
-      const int q = (int)(key & 0xffffffffu);
-      id = who_id[(key >> 32) & 1 ? last - q : q];
+  if (tx.x < 0) return;
+  const int win = tx.y & 127, k = tx.y >> 7;
+  uint32_t left[W], right[W];  // the text kind's sets, selected without indexing
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    left[i] = k ? S[0][1][i] : S[0][0][i];
+    right[i] = k ? S[1][1][i] : S[1][0][i];
+  }
+  const int Ll = longest(left, win), Lr = longest(right, win);
+  const int len = max(Ll, Lr);
+  int id = -1;
+  if (len) {
+    const int row = k * ml + len - 1, w0 = tid >> 5, b = tid & 31;
+    int q;
+    if (Lr == len) {  // the right sweep: the lowest pushing rank at or after r
+      const uint32_t here = s_bits[w0 * rows + row] & (~0u << b);
+      const uint32_t words = s_rows[row] & (~0u << (w0 + 1));
+      if (here) {
+        q = tile0 + 32 * w0 + __ffs(here) - 1;
+      } else if (words) {
+        const int w = __ffs(words) - 1;
+        q = tile0 + 32 * w + __ffs(s_bits[w * rows + row]) - 1;
+      } else {
+        const int p = cl[cols + kSumWords + row];
+        q = p < 0 ? -1 : last - p;
+      }
+    } else {  // the left sweep: the highest pushing rank at or before r
+      const uint32_t here = s_bits[w0 * rows + row] & ((2u << b) - 1u);
+      const uint32_t words = s_rows[row] & ((1u << w0) - 1u);
+      if (here) {
+        q = tile0 + 32 * w0 + 31 - __clz(here);
+      } else if (words) {
+        const int w = 31 - __clz(words);
+        q = tile0 + 32 * w + 31 - __clz(s_bits[w * rows + row]);
+      } else {
+        q = cl[kSumWords + row];
+      }
     }
-    best_len[t] = len;
-    best_id[t] = id;
+    if (q >= 0) id = who_id[q];
   }
+  best_len[tx.x] = len;
+  best_id[tx.x] = id;
 }
 
 long long tiles_of(long long n_s) { return (n_s + kTile - 1) / kTile; }
 
 size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
-// Scratch: text_at int32[n_s], then the aggregates and the carries, each
-// int32[tiles * 6 * max_len].
+// Scratch: text int2[n_s], then the aggregates and the carries, each
+// int32[tiles * 2 * (kSumWords + 2 max_len)].
 struct Layout {
-  size_t text_at = 0, agg = 0, carry = 0, total = 0;
+  size_t text = 0, agg = 0, carry = 0, total = 0;
   Layout(long long n_s, int ml) {
-    const size_t cols = (size_t)tiles_of(n_s) * 2 * kParts * ml * sizeof(int);
-    agg = align16((size_t)n_s * sizeof(int));
+    const size_t cols = (size_t)tiles_of(n_s) * 2 * (kSumWords + 2 * ml) * sizeof(int);
+    agg = align16((size_t)n_s * sizeof(int2));
     carry = agg + align16(cols);
     total = carry + align16(cols);
   }
 };
+
+template <int W>
+int launch(const int* rank, const int* lcp, const int* who_len, const int* who_id,
+           const int* who_kind, const int* window, const uint8_t* wp, int n_s, int n_text, int ml,
+           uint8_t* base, const Layout& lay, int* best_id, int* best_len, cudaStream_t s) {
+  const int tiles = (int)tiles_of(n_s);
+  auto* text = reinterpret_cast<int2*>(base + lay.text);
+  auto* agg = reinterpret_cast<int*>(base + lay.agg);
+  auto* carry = reinterpret_cast<int*>(base + lay.carry);
+  sa_match_tiles_kernel<W><<<tiles, kThreads, 0, s>>>(rank, window, wp, lcp, who_len, who_kind,
+                                                      n_s, n_text, ml, text, agg);
+  int rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  sa_match_carry_kernel<W><<<2 + (4 * ml + kCarryCols - 1) / kCarryCols, kCarryThreads, 0,
+                             s>>>(agg, carry, tiles, ml);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
+  sa_match_walk_kernel<W><<<tiles, kThreads, 0, s>>>(lcp, who_len, who_id, who_kind, text, carry,
+                                                     n_s, ml, best_id, best_len);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -378,9 +576,9 @@ extern "C" long long wp_linear_match_scratch_bytes(long long n_s, int max_len) {
   return n_s < 1 || max_len < 1 || max_len > kMaxLen ? -1 : (long long)Layout(n_s, max_len).total;
 }
 
-// Fills text_at with -1 and launches the match on `stream`: 3 kernels.
-// rank, lcp, who_len, who_id, who_kind int32[n_s]; window int32[n_text];
-// wp bool[n_text]; best_id, best_len int32[n_text]; scratch of
+// Launches the match on `stream`: 3 kernels, no memset.  rank, lcp,
+// who_len, who_id, who_kind int32[n_s]; window int32[n_text]; wp
+// bool[n_text]; best_id, best_len int32[n_text]; scratch of
 // wp_linear_match_scratch_bytes(n_s, max_len) bytes, 16-byte aligned.
 // Needs 1 <= n_s, n_s + kTile < INT_MAX, 0 <= n_text <= n_s and
 // 1 <= max_len <= kMaxLen.  Returns a cudaError_t.
@@ -392,29 +590,24 @@ extern "C" int wp_linear_match(const void* rank, const void* lcp, const void* wh
       max_len > kMaxLen)
     return cudaErrorInvalidValue;
   const Layout lay(n_s, max_len);
-  const long long tiles = tiles_of(n_s);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* base = static_cast<uint8_t*>(scratch);
-  auto* text_at = reinterpret_cast<int*>(base + lay.text_at);
-  auto* agg = reinterpret_cast<int*>(base + lay.agg);
-  auto* carry = reinterpret_cast<int*>(base + lay.carry);
+  const auto* i_rank = static_cast<const int*>(rank);
   const auto* i_lcp = static_cast<const int*>(lcp);
   const auto* i_len = static_cast<const int*>(who_len);
+  const auto* i_id = static_cast<const int*>(who_id);
   const auto* i_kind = static_cast<const int*>(who_kind);
-
-  int rc = cudaMemsetAsync(text_at, 0xff, (size_t)n_s * sizeof(int), s);
-  if (rc != cudaSuccess) return rc;
-  sa_match_tiles_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      static_cast<const int*>(rank), i_lcp, i_len, i_kind, (int)n_s, (int)n_text, max_len,
-      text_at, agg);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
-  const int cols = 2 * kParts * max_len;
-  sa_match_carry_kernel<<<(unsigned)((cols + kCarryCols - 1) / kCarryCols),
-                          kCarryCols * kCarrySegs, 0, s>>>(agg, carry, (int)tiles, max_len);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
-  sa_match_walk_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      i_lcp, i_len, static_cast<const int*>(who_id), i_kind, static_cast<const int*>(window),
-      static_cast<const uint8_t*>(wp), text_at, carry, (int)n_s, max_len,
-      static_cast<int*>(best_id), static_cast<int*>(best_len));
-  return (int)cudaGetLastError();
+  const auto* i_win = static_cast<const int*>(window);
+  const auto* u_wp = static_cast<const uint8_t*>(wp);
+  auto* base = static_cast<uint8_t*>(scratch);
+  auto* o_id = static_cast<int*>(best_id);
+  auto* o_len = static_cast<int*>(best_len);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int words = (max_len + 31) / 32;  // of the bitset, a kind
+  if (words == 1)
+    return launch<1>(i_rank, i_lcp, i_len, i_id, i_kind, i_win, u_wp, (int)n_s, (int)n_text,
+                     max_len, base, lay, o_id, o_len, s);
+  if (words == 2)
+    return launch<2>(i_rank, i_lcp, i_len, i_id, i_kind, i_win, u_wp, (int)n_s, (int)n_text,
+                     max_len, base, lay, o_id, o_len, s);
+  return launch<3>(i_rank, i_lcp, i_len, i_id, i_kind, i_win, u_wp, (int)n_s, (int)n_text,
+                   max_len, base, lay, o_id, o_len, s);
 }

@@ -27,11 +27,14 @@ shared by both kinds.
 `match_from_sa` runs the plain version, match_from_sa_plain (these torch
 ops, [max_len, n] matrices and all), for CPU tensors and the hand-written
 CUDA kernels of csrc/linear_match.cu (ops/linear_match_cuda.py:
-KERNEL_LAUNCHES = 3 launches, the call counted once in
+KERNEL_LAUNCHES = 3 launches and no memset, the call counted once in
 match_from_sa.launches) for CUDA tensors; never a fallback from one to the
-other.  The kernels keep each length's running maxima in registers and
-shared memory, tile by tile, with one carry a tile, direction and length
-between tiles, and write no [max_len, n] buffer.
+other.  The kernels hold the slots' other form: at each rank the set of
+lengths whose slot is alive, a bitset of at most three words a kind in a
+thread's registers (kill the lengths above the entering edge, then set
+the push's), scanned over lanes, warps and tiles by its run summary, and
+the latest push per (kind, length) found only for the length a text
+position takes.  They write no [max_len, n] buffer.
 """
 
 from __future__ import annotations
