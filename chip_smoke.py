@@ -183,7 +183,24 @@ JAX package.  Phases, each fatal on failure:
     each kernel's launches in the dry run (rank 0's, every path summed)
     as `dryrun_launches`: the fused kernel, the compaction, the features,
     probe and commit kernels launch on one card, the split kernels only
-    from four, the linear match never (the dry run has no linear path).
+    from four, the linear match never (the dry run has no linear path);
+14. harness: every kernel's launch count is set to 0, then the
+    cross-engine harness's command runs in a temporary directory,
+    wordpiece_tpu_torch.bench.harness.main(["--langs", "en", "ru", "ja",
+    "zh", "--corpus-size", "10", "--iters", "3", "--collect", "--device",
+    "cuda"]): for each language a 10 MB corpus and its make_vocab vocab
+    (not the bert-shaped one), the fast, fast-stream and linear engines on
+    the card and the native host engine, each one warm-up and the min of 3
+    timed encodes; its table goes to the output.  For each language the
+    four collected id files must be byte-identical and the four counts
+    equal; every encoder the harness made (api.make_encoder is wrapped for
+    the phase) must have run on the card, the word encoders with
+    verify_repairs and device_fallbacks 0, the linear encoders with
+    device_batches > 0; the word kernel and the compaction must have
+    launched alike, the probe once a fast-stream encode, the linear match
+    once a linear device batch, the features and commit kernels once for
+    each of both, the split kernels not at all.  The kernels line gives
+    each kernel's launches in this run as `harness_launches`.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -1713,6 +1730,100 @@ def dryrun_phase() -> dict:
     return launches
 
 
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+HARNESS_LANGS = ("en", "ru", "ja", "zh")
+HARNESS_ENGINES = ("fast", "fast-stream", "linear", "host")
+HARNESS_ITERS = 3
+
+
+def harness_phase(card: str) -> dict:
+    """Phase 14 (module docstring): the cross-engine harness's command on
+    the card, every launch count set to 0 just before it and read just
+    after.  Returns each kernel's launches in that run."""
+    from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.bench import harness
+    from wordpiece_tpu_torch.dryrun import KERNELS
+    from wordpiece_tpu_torch.engine_linear import LinearEncoder
+    from wordpiece_tpu_torch.engine_word import WordEncoder
+
+    made, ran = [], []
+    make_encoder, run = api.make_encoder, harness.run
+
+    def keeping_encoders(vocab, engine="fast", **kw):
+        enc = make_encoder(vocab, engine=engine, **kw)
+        made.append((engine, enc))
+        return enc
+
+    def keeping_results(*args, **kw):
+        ran.append(run(*args, **kw))
+        return ran[-1]
+
+    argv = ["--langs", *HARNESS_LANGS, "--corpus-size", "10", "--iters", str(HARNESS_ITERS),
+            "--collect", "--device", "cuda"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        api.make_encoder, harness.run = keeping_encoders, keeping_results
+        os.chdir(tmp)
+        try:
+            for c in KERNELS.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            rc = harness.main(argv)
+            seconds = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in KERNELS.items()}
+            streams = {lang: {e: read_bytes(f"result_{e}_{lang}.txt") for e in HARNESS_ENGINES}
+                       for lang in HARNESS_LANGS}
+        finally:
+            os.chdir(cwd)
+            api.make_encoder, harness.run = make_encoder, run
+    results, counts = ran[0]
+    words = [enc for _, enc in made if isinstance(enc, WordEncoder)]
+    linears = [enc for _, enc in made if isinstance(enc, LinearEncoder)]
+    stream_encodes = sum(e == "fast-stream" for e, _ in made) * (1 + HARNESS_ITERS)
+    lin_batches = sum(enc.device_batches for enc in linears)
+    equal = {lang: len(set(s.values())) == 1 and
+             len({counts[f"{lang}/{e}"] for e in HARNESS_ENGINES}) == 1
+             for lang, s in streams.items()}
+    emit_json({"phase": "harness", "card": card, "argv": argv, "rc": rc,
+               "device": harness.device_label("cuda"), "seconds": results, "counts": counts,
+               "streams_equal": equal,
+               "sha1": {lang: hashlib.sha1(s["host"]).hexdigest()[:16]
+                        for lang, s in streams.items()},
+               "encoders": [[e, type(enc).__name__, str(getattr(enc, "device", "host"))]
+                            for e, enc in made],
+               "verify_repairs": sum(enc.verify_repairs for enc in words),
+               "device_fallbacks": sum(enc.device_fallbacks for enc in words),
+               "linear_device_batches": [enc.device_batches for enc in linears],
+               "fast_stream_encodes": stream_encodes, "launches": launches,
+               "wall_s": seconds})
+    if rc != 0 or not all(equal.values()):
+        raise AssertionError(f"harness: rc {rc}, streams equal by language {equal}")
+    off_card = [e for e, enc in made if e != "host" and enc.device.type != "cuda"]
+    if len(made) != len(HARNESS_LANGS) * len(HARNESS_ENGINES) or off_card:
+        raise AssertionError(f"harness: {len(made)} encoders made, off the card: {off_card}")
+    if any(enc.verify_repairs or enc.device_fallbacks for enc in words):
+        raise AssertionError("harness: the word engine repaired or rescued on the host")
+    if not all(enc.device_batches > 0 for enc in linears):
+        raise AssertionError("harness: a linear encoder ran no batch on the card")
+    missing = [k for k in ("word_match_commit", "compact", "match_positions", "compute_features",
+                           "commit_with_positions", "match_from_sa") if launches[k] < 1]
+    if missing or launches["word_match"] or launches["word_commit"]:
+        raise AssertionError(f"harness: kernels not launched {missing}, or split kernels "
+                             f"launched: {launches}")
+    if (launches["word_match_commit"] != launches["compact"]
+            or launches["match_positions"] != stream_encodes
+            or launches["match_from_sa"] != lin_batches
+            or launches["compute_features"] != stream_encodes + lin_batches
+            or launches["commit_with_positions"] != stream_encodes + lin_batches):
+        raise AssertionError(f"harness: launches {launches} against {stream_encodes} "
+                             f"fast-stream encodes and {lin_batches} linear batches")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2392,6 +2503,10 @@ def main(argv=None) -> int:
     # ---- 13. the dry run ----------------------------------------------------
     dry = dryrun_phase()
 
+    # ---- 14. the cross-engine harness ------------------------------------------
+    del corpora, captured, goldens
+    hns = harness_phase(card)
+
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]
     emit_json({"kernels": [
@@ -2409,6 +2524,7 @@ def main(argv=None) -> int:
             "bound_by": t_en["match"]["bound_by"],
             "library_ms": None,
             "dryrun_launches": dry["word_match_commit"],
+            "harness_launches": hns["word_match_commit"],
         },
         {
             "name": "compact_from_counts",
@@ -2424,8 +2540,10 @@ def main(argv=None) -> int:
             "bound_by": t_en["compact"]["bound_by"],
             "library_ms": t_en["compact"]["library_ms"],
             "dryrun_launches": dry["compact"],
+            "harness_launches": hns["compact"],
         },
-        {**stream_kernel, "dryrun_launches": dry["match_positions"]},
+        {**stream_kernel, "dryrun_launches": dry["match_positions"],
+         "harness_launches": hns["match_positions"]},
         *({
             "name": name,
             "route": "cuda",
@@ -2440,6 +2558,7 @@ def main(argv=None) -> int:
             "bound_by": fc["timing"][part]["bound_by"],
             "library_ms": None,
             "dryrun_launches": dry[name],
+            "harness_launches": hns[name],
         } for name, part, source, replaces, layout in (
             ("compute_features", "features", "wordpiece_tpu_torch/csrc/text_features.cu",
              "wordpiece_tpu/ops/text_features.py:90",
@@ -2469,6 +2588,7 @@ def main(argv=None) -> int:
             "bound_by": lm_timing["bound_by"],
             "library_ms": None,
             "dryrun_launches": dry["match_from_sa"],
+            "harness_launches": hns["match_from_sa"],
         },
         *({
             "name": name,
@@ -2484,6 +2604,7 @@ def main(argv=None) -> int:
             "bound_by": split["timing"][part]["bound_by"],
             "library_ms": None,
             "dryrun_launches": dry[name],
+            "harness_launches": hns[name],
         } for name, part, replaces, layout in (
             ("word_match", "match", "wordpiece_tpu/ops/word_kernel.py:77",
              f"{'global' if sharded['grid_2d_1x1']['launches_global']['word_match'] else 'shared'}"

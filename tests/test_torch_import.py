@@ -37,7 +37,7 @@ def test_import_with_jax_blocked():
         "import wordpiece_tpu_torch.ops.match_fast_cuda, wordpiece_tpu_torch.ops.cuda_build\n"
         "import wordpiece_tpu_torch.parallel.sharding, wordpiece_tpu_torch.parallel.vocab_parallel\n"
         "import wordpiece_tpu_torch.parallel.word_sharding, wordpiece_tpu_torch.parallel.multihost\n"
-        "import wordpiece_tpu_torch.dryrun\n"
+        "import wordpiece_tpu_torch.dryrun, wordpiece_tpu_torch.bench.harness\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'wordpiece_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
