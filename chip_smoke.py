@@ -71,8 +71,8 @@ JAX package.  Phases, each fatal on failure:
     batch program has no host sync), the fallback's suffix array and LCP
     over that batch's S, and each part's bytes bound; at that batch's
     shapes the features and commit kernels are first held to their plain
-    versions (exact, whole outputs, max_chain the batch's np and its
-    longest unit).  Then the match kernels (match_from_sa) against
+    versions (exact, whole outputs) and the batch's CUDA graph nodes are
+    counted.  Then the match kernels (match_from_sa) against
     match_from_sa_plain, whole outputs, exactly, on the en first batch,
     the doubling fallback's first batch, every bench/linear_cases.py case
     and a max_len 96 case of 2^20 ranks; the kernels and memsets of one
@@ -80,8 +80,8 @@ JAX package.  Phases, each fatal on failure:
     memsets); the kernels' time by CUDA events behind a spin kernel at the
     en first batch and at the 2^20 ranks, each beside its bound, its plain
     version's time and its kernels' device time from a profile; with
-    --compare-linear-match DIR, the kernels of the checkout at DIR timed
-    beside these in turns on those two inputs;
+    --compare DIR, the kernels of the checkout at DIR timed beside these in
+    turns on those two inputs;
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
@@ -96,8 +96,9 @@ JAX package.  Phases, each fatal on failure:
     kernel (compute_features) equals compute_features_plain, every field
     whole with the padding, and the commit kernels (commit_with_positions)
     equal commit_with_positions_plain (ids, positions, count) on the
-    probe kernel's matches and on random matches inside the window, each
-    at max_chain n and at the longest unit: on the first 1 MB of each of
+    probe kernel's matches and on random matches inside the window (the
+    plain commit loops to the fixed point, as the kernels do): on the
+    first 1 MB of each of
     en/ru/ja/zh and the 10 MB en bucket (padded as the engine pads them),
     and on bench/stream_cases.py's cases (n = 1, 128, around one and two
     tiles of either kernel (2,048 positions for the commit, 4,096 for the
@@ -123,14 +124,16 @@ JAX package.  Phases, each fatal on failure:
     kernel at the en first 1 MB and at the 10 MB en bucket (shared tags,
     and global tags forced), its plain version's time at both, its bound;
     the features and commit kernels' times the same way at the same two
-    shapes (the commit on the probe's matches at the longest unit), beside
-    their plain versions' and their bounds, and one call of each captured
-    in a CUDA graph, whose nodes must be one kernel and one memset for the
-    features, and three kernels and one memset for the commit at max_chain
-    n and at the longest unit alike; the 10 MB en fast-stream rate
-    (min and median of 5) with each part's time (host padding, H2D,
-    features, match, commit, count and D2H) and each device part's host
-    enqueue time, the peak of
+    shapes (the commit on the probe's matches), beside their plain
+    versions' and their bounds, and one call of each captured in a CUDA
+    graph, whose nodes must be one kernel and one memset for the features,
+    and three kernels and one memset for the commit; the 10 MB en
+    fast-stream rate (min and median of 5) with each part's time (host
+    decode, host padding, H2D, features, match, commit, count and D2H) and
+    each device part's host enqueue time; with --compare DIR, the same
+    encode's rate and parts (each checkout's own stream_parts), and the
+    linear rate, from the checkout at DIR and from this one, each in a
+    process of its own, in the same turns as phase 7's; the peak of
     max_memory_allocated, and one encode under torch.profiler (device time
     by op class, busy share), which must show the three kernels and no
     torch scan (cummin) or scatter kernel;
@@ -200,7 +203,31 @@ JAX package.  Phases, each fatal on failure:
     launched alike, the probe once a fast-stream encode, the linear match
     once a linear device batch, the features and commit kernels once for
     each of both, the split kernels not at all.  The kernels line gives
-    each kernel's launches in this run as `harness_launches`.
+    each kernel's launches in this run as `harness_launches`;
+15. stress: the reference's differential stress configurations
+    (bench/stress_cases.py, the JAX package's reference-scale stress test's
+    generators and seed 17), positive and negative, through
+    make_encoder(..., device="cuda") against the native oracle, every
+    launch count set to 0 just before each encode and read just after:
+    spaced_10M (10,000,000 chars of Zipf words, >= 25,000 random-split
+    pieces, max_len <= 16, unk_id -1) through fast, linear and
+    fast-stream; single_unit_1M (one 1,000,000-codepoint unit, 30,000
+    parts, tokens up to hundreds of codepoints) through fast (its overflow
+    route), linear (its scalar route: max_len past MAX_SLOT_LEN) and
+    fast-stream (the probe's ascending pass, the commit's walk over one
+    unit hundreds of tiles long); mid_scale (100,000 and 500,000 chars,
+    min(30,000, len // 10) parts) through fast and fast-stream.  Each row
+    gives the ids, the seconds of the encode, the route counts (fast:
+    dispatches, overflow units and units encoded on the host; linear:
+    device batches and scalar-route units), the launches and, for fast,
+    verify_repairs and device_fallbacks, which must be 0.  On the texts of
+    one unit the features and commit kernels are also held to their plain
+    versions (as in 8b) on the probe kernel's matches: the longest chain
+    the commit's walk can be given.  Fast-stream must launch the
+    features, probe and commit kernels once an encode, the word kernel and
+    the compaction launch alike, the linear match, features and commit
+    kernels once a device batch.  The kernels line
+    gives each kernel's launches in this phase as `stress_launches`.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -648,12 +675,17 @@ def linear_match_check(args, max_len: int, label: str) -> dict:
             "max_len": max_len, "matched": int((want[1] > 0).sum()), "max_abs_err": err}
 
 
+# --compare DIR: the order in which the checkout at DIR ("other") and this
+# one are timed, so that a drift of the host or the card falls on both.
+TURNS = ("other", "this", "this", "other")
+
+
 def linear_match_compare(other_root: str, card: str, inputs: dict) -> dict:
     """The match kernels of another checkout (its csrc/linear_match.cu,
     the same C interface) beside this one's, on the same inputs: both
     exact against match_from_sa_plain, then each timed by device_ms in
-    turns (other, this, this, other) with its kernels' device us from a
-    profile.  inputs: name -> (args, max_len).  Returns a report line."""
+    TURNS with its kernels' device us from a profile.  inputs: name ->
+    (args, max_len).  Returns a report line."""
     import torch
 
     from wordpiece_tpu_torch.ops import cuda_build
@@ -676,7 +708,7 @@ def linear_match_compare(other_root: str, card: str, inputs: dict) -> dict:
             _, rows, _ = device_profile(lambda lib=lib: lmc.launch(*args, max_len=ml, lib=lib),
                                         None)
             row[f"{who}_device_us_by_kernel"] = {k: us for k, _, us in rows}
-        for who in ("other", "this", "this", "other"):
+        for who in TURNS:
             lib = libs[who]
             row.setdefault(f"{who}_ms", []).append(
                 device_ms(lambda lib=lib: lmc.launch(*args, max_len=ml, lib=lib), 200))
@@ -888,12 +920,12 @@ def exact_diff(got, want, label: str) -> int:
 
 
 def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: int,
-                          chains: dict, label: str):
+                          label: str):
     """The features kernel and the commit kernels against their plain
     versions on the card, whole outputs with the padding, exactly: the
     features of x (int32[n]), then the commit of each set of matches
-    {name: (best_id, best_len) or a function of the kernel's features} at
-    each max_chain of `chains`.  Each wrapper must launch once a call.
+    {name: (best_id, best_len) or a function of the kernel's features},
+    both walks to the fixed point.  Each wrapper must launch once a call.
     Returns (a report row, the kernel's features)."""
     import torch
 
@@ -909,39 +941,36 @@ def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: 
     errs = {"features": exact_diff([getattr(got, f) for f in FEATURE_FIELDS],
                                    [getattr(want, f) for f in FEATURE_FIELDS],
                                    f"{label} compute_features")}
-    ids = {}
+    ids, rounds = {}, {}
     for kind, m in matches.items():
         best_id, best_len = m(got) if callable(m) else m
-        for cname, max_chain in chains.items():
-            launched = co.commit_with_positions.launches
-            g = co.commit_with_positions(best_id, best_len, got, n_valid, unk_id=unk_id,
-                                         max_chain=max_chain)
-            w = co.commit_with_positions_plain(best_id, best_len, want, n_valid, unk_id=unk_id,
-                                               max_chain=max_chain)
-            torch.cuda.synchronize()
-            if co.commit_with_positions.launches != launched + 1:
-                raise AssertionError(f"{label}: not one commit call")
-            key = f"{kind}_{cname}"
-            errs[f"commit_{key}"] = exact_diff(g, w, f"{label} commit {key}")
-            ids[key] = int(w[2])
+        launched = co.commit_with_positions.launches
+        g = co.commit_with_positions(best_id, best_len, got, n_valid, unk_id=unk_id)
+        w = co.commit_with_positions_plain(best_id, best_len, want, n_valid, unk_id=unk_id)
+        rounds[kind] = co.commit_with_positions_plain.rounds
+        torch.cuda.synchronize()
+        if co.commit_with_positions.launches != launched + 1:
+            raise AssertionError(f"{label}: not one commit call")
+        errs[f"commit_{kind}"] = exact_diff(g, w, f"{label} commit {kind}")
+        ids[kind] = int(w[2])
     row = {"input": label, "n": int(x.shape[0]), "n_valid": n_valid, "max_len": max_len,
-           "max_chain": chains, "ids": ids, "max_abs_err_by_part": errs,
+           "ids": ids, "plain_rounds": rounds, "max_abs_err_by_part": errs,
            "max_abs_err": max(errs.values())}
     return row, got
 
 
 def stream_parts(enc, data: bytes):
     """One fast-stream encode of `data`, part by part, the steps of
-    FastEncoder.encode_codepoints: the host's decode and padding by the
-    host clock, then H2D, features, match, commit, and the count's read
-    with the ids' D2H by CUDA events, and each part's host time between
-    the same two events.  Returns (ids, ms by part)."""
+    api._encode_with and FastEncoder.encode_codepoints: the host's decode
+    and padding by the host clock, each on its own, then H2D, features,
+    match, commit, and the count's read with the ids' D2H by CUDA events,
+    and each device part's host time between the same two events.
+    Returns (ids, ms by part)."""
     import numpy as np
     import torch
 
     from wordpiece_tpu_torch.core import unicode as uni
     from wordpiece_tpu_torch.engine import pad_codepoints
-    from wordpiece_tpu_torch.engine_linear import _longest_unit
     from wordpiece_tpu_torch.ops import commit as commit_ops
     from wordpiece_tpu_torch.ops import match_fast as mf
     from wordpiece_tpu_torch.ops.text_features import compute_features
@@ -951,9 +980,9 @@ def stream_parts(enc, data: bytes):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cps = uni.decode_utf8(data).astype(np.int32)
+    t1 = time.perf_counter()
     cp_np = pad_codepoints(cps, st["max_len"])
-    max_chain = _longest_unit(cps)
-    host_ms = (time.perf_counter() - t0) * 1e3
+    t2 = time.perf_counter()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     stamps = []  # the host clock at each event's record
 
@@ -969,14 +998,13 @@ def stream_parts(enc, data: bytes):
     mark(2)
     best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
     mark(3)
-    ids, count = commit_ops.commit(best_id, best_len, feats, int(cps.shape[0]), unk_id=unk_id,
-                                   max_chain=max_chain)
+    ids, count = commit_ops.commit(best_id, best_len, feats, int(cps.shape[0]), unk_id=unk_id)
     mark(4)
     out = ids[: int(count)].cpu().numpy()
     mark(5)
     ev[5].synchronize()
     names = ("h2d", "features", "match", "commit", "count_and_d2h")
-    parts = {"host_decode_pad": host_ms}
+    parts = {"host_decode": (t1 - t0) * 1e3, "host_pad": (t2 - t1) * 1e3}
     parts.update({k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)})
     # A part whose kernel is shorter than the host's enqueue of it shows
     # the enqueue by events: the card waits for the host.
@@ -1002,7 +1030,6 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     from wordpiece_tpu_torch.core import unicode as uni
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine import index_statics, pad_codepoints
-    from wordpiece_tpu_torch.engine_linear import _longest_unit
     from wordpiece_tpu_torch.ops import commit as co
     from wordpiece_tpu_torch.ops import commit_cuda
     from wordpiece_tpu_torch.ops import match_fast as mf
@@ -1077,8 +1104,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         """Both kernels against their plain versions on `cps` padded as the
         engine pads it (bucket) or as it is, then max_len zeros: the
         probe kernel's matches and random ones inside the window, or the
-        `given` (best_id, best_len), at max_chain n and the longest
-        unit."""
+        `given` (best_id, best_len)."""
         nonlocal fc_err
         st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
         if bucket:
@@ -1095,14 +1121,13 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             got = stream_cases.random_matches(fc_rng, f.window.cpu().numpy())
             return tuple(torch.from_numpy(a).to(enc.device) for a in got)
 
-        chains = {"n": n, "longest_unit": _longest_unit(cps[:n_valid])}
         matches = ({"probe": probe, "random": rand} if given is None else
                    {"given": tuple(torch.from_numpy(a).to(enc.device) for a in given)})
         row, _ = features_commit_check(cp_pad[:n], n_valid, st["max_len"], matches,
-                                       enc._statics["unk_id"], chains, label)
+                                       enc._statics["unk_id"], label)
         fc_err = max(fc_err, row["max_abs_err"])
         emit_json({"phase": "features_commit_vs_plain", **row})
-        return enc, cp_pad, n, n_valid, chains
+        return enc, cp_pad, n, n_valid
 
     for lang, enc in encs.items():
         data = corpora[lang][0]
@@ -1199,7 +1224,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             shards, lens = sh.shard_codepoints(cps_en, 1)
             ids, counts, total = sh.encode_2d_parallel(
                 sh.pad_shards(shards, sidx.max_len), lens, load_table(sidx.tables[0], enc.device),
-                mesh=grid, **index_statics(sidx), max_chain=_longest_unit(cps_en),
+                mesh=grid, **index_statics(sidx),
             )
             got2 = sh.assemble_ids(ids.cpu().numpy(), counts.cpu().numpy())
             ok_2d = np.array_equal(got2, want_en) and int(total) == want_en.shape[0]
@@ -1237,33 +1262,29 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
                **timing})
 
     # The features and commit kernels at the same shapes, the commit on the
-    # probe kernel's matches at the main path's max_chain (the longest unit).
+    # probe kernel's matches.
     fc_timing = {}
-    for key, (enc, cp_pad, n, n_valid, chains) in fc_at.items():
+    for key, (enc, cp_pad, n, n_valid) in fc_at.items():
         st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
-        unk_id, max_chain, x = enc._statics["unk_id"], chains["longest_unit"], cp_pad[:n]
+        unk_id, x = enc._statics["unk_id"], cp_pad[:n]
         feats = fk(x, n_valid, st["max_len"])
         best = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
-        row = {"n": n, "n_valid": n_valid, "max_chain": max_chain,
+        row = {"n": n, "n_valid": n_valid,
                "features_launches_per_call": launches_per_call(
                    lambda: fk(x, n_valid, st["max_len"])),
-               "commit_launches_per_call": {
-                   name: launches_per_call(
-                       lambda: ck(*best, feats, n_valid, unk_id=unk_id, max_chain=chain))
-                   for name, chain in (("max_chain_n", n), ("longest_unit", max_chain))}}
+               "commit_launches_per_call": launches_per_call(
+                   lambda: ck(*best, feats, n_valid, unk_id=unk_id))}
         want_calls = {"features_launches_per_call": {"kernels": 1, "memsets": 1, "other": 0},
-                      "commit_launches_per_call": {
-                          k: {"kernels": commit_cuda.KERNEL_LAUNCHES, "memsets": 1, "other": 0}
-                          for k in ("max_chain_n", "longest_unit")}}
+                      "commit_launches_per_call": {"kernels": commit_cuda.KERNEL_LAUNCHES,
+                                                   "memsets": 1, "other": 0}}
         if any(row[k] != v for k, v in want_calls.items()):
             raise AssertionError(f"{key}: launches a call {row}, expected {want_calls}")
         for part, k_fn, p_fn, (nbytes, ops) in (
             ("features", lambda: fk(x, n_valid, st["max_len"]),
              lambda: tfo.compute_features_plain(x, n_valid, st["max_len"]),
              features_bytes_ops(n)),
-            ("commit", lambda: ck(*best, feats, n_valid, unk_id=unk_id, max_chain=max_chain),
-             lambda: co.commit_with_positions_plain(*best, feats, n_valid, unk_id=unk_id,
-                                                    max_chain=max_chain),
+            ("commit", lambda: ck(*best, feats, n_valid, unk_id=unk_id),
+             lambda: co.commit_with_positions_plain(*best, feats, n_valid, unk_id=unk_id),
              commit_bytes_ops(n)),
         ):
             k_ms = device_ms(k_fn, 50)
@@ -1331,6 +1352,89 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         "bound_by": t10["bound_by"],
         "library_ms": None,
     }
+
+
+def stream_turn(root: str, inputs: str) -> None:
+    """One turn of stream_compare, in a process of its own: the fast-stream
+    and linear engines of the checkout at `root` on the 10 MB en text,
+    vocab and oracle ids that stream_compare wrote to `inputs`, five
+    encodes of each after a warm-up (which builds the kernels), then five
+    fast-stream encodes by part through that checkout's own
+    chip_smoke.stream_parts, so each tree times its own host pass.
+    Prints one JSON line."""
+    sys.path.insert(0, root)
+    import importlib.util
+
+    import numpy as np
+
+    import wordpiece_tpu_torch as wpt
+    from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+
+    package = os.path.dirname(os.path.abspath(wpt.__file__))
+    if package != os.path.join(os.path.abspath(root), "wordpiece_tpu_torch"):
+        raise RuntimeError(f"imported {package}, not the package under {root}")
+    spec = importlib.util.spec_from_file_location("turn_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    data = read_bytes(os.path.join(inputs, "text.txt"))
+    with open(os.path.join(inputs, "vocab.txt"), encoding="utf-8") as f:
+        vocab = parse_vocab(f.read().split("\n"))
+    want = np.load(os.path.join(inputs, "oracle.npy"))
+    encs = {e: wpt.make_encoder(vocab, e, device="cuda") for e in ("fast-stream", "linear")}
+    rates = {}
+    for engine, enc in encs.items():
+        runs = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            got = api._encode_with(enc, data)
+            if i:
+                runs.append(time.perf_counter() - t0)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{root}: {engine} ids differ from the native oracle")
+        rates[engine] = {"seconds": runs, "best_s": min(runs), "median_s": float(np.median(runs)),
+                         "mb_per_s": len(data) / min(runs) / 1e6,
+                         "median_mb_per_s": len(data) / float(np.median(runs)) / 1e6}
+    parts = []
+    for _ in range(5):
+        got, p = smoke.stream_parts(encs["fast-stream"], data)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{root}: fast-stream by parts: ids differ from the oracle")
+        p.pop("host_enqueue")
+        p["host"] = sum(v for k, v in p.items() if k.startswith("host_"))
+        parts.append(p)
+    emit_json({"package": package, **rates["fast-stream"], "linear": rates["linear"],
+               "parts_min_ms": {k: min(p[k] for p in parts) for k in parts[0]},
+               "parts_median_ms": {k: float(np.median([p[k] for p in parts])) for k in parts[0]}})
+
+
+def stream_compare(other_root: str, card: str, data: bytes, lines: list, want) -> dict:
+    """--compare DIR (phase 10): stream_turn of the checkout at DIR and of
+    this one, each turn a process of its own, in TURNS, on the same text,
+    vocab and oracle ids."""
+    import numpy as np
+
+    roots = {"other": os.path.abspath(other_root), "this": ROOT}
+    if not os.path.isfile(os.path.join(roots["other"], "chip_smoke.py")):
+        raise RuntimeError(f"--compare {other_root}: no chip_smoke.py there")
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "text.txt"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(tmp, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines))
+        np.save(os.path.join(tmp, "oracle.npy"), want)
+        for who in TURNS:
+            turn = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                    f"chip_smoke.stream_turn({roots[who]!r}, {tmp!r})")
+            res = subprocess.run([sys.executable, "-c", turn], capture_output=True, text=True,
+                                 timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(f"stream turn of {roots[who]}: rc {res.returncode}\n"
+                                   f"{res.stderr[-3000:]}")
+            turns.append({"tree": who, **json.loads(res.stdout.strip().splitlines()[-1])})
+    return {"phase": "stream_compare", "card": card, "corpus": "en_10MB",
+            "other": roots["other"], "turns": turns}
 
 
 # ---- phases 11-12: the word kernel split in two, the word sharded paths ------
@@ -1824,6 +1928,178 @@ def harness_phase(card: str) -> dict:
     return launches
 
 
+class CountingScalar:
+    """A native VocabHandle that counts the units an encoder gives it:
+    one a call of encode (the word engine's overflow route) and each unit
+    of an encode_units batch (units encoded on the host)."""
+
+    def __init__(self, handle):
+        self.handle, self.single, self.batched = handle, 0, 0
+
+    def encode(self, cps):
+        self.single += 1
+        return self.handle.encode(cps)
+
+    def encode_units(self, data, starts, lens, cap):
+        self.batched += int(len(starts))
+        return self.handle.encode_units(data, starts, lens, cap)
+
+
+def stress_cases_of():
+    """Phase 15's inputs: (case, text bytes, {sign: lines}, engines), made
+    from seed 17 by bench/stress_cases.py."""
+    from wordpiece_tpu_torch.bench import stress_cases as sc
+
+    data, pos, neg = sc.spaced(10_000_000)
+    yield "spaced_10M", data, {"positive": pos, "negative": neg}, ("fast", "linear", "fast-stream")
+    data, pos, neg = sc.single_unit(1_000_000, 30_000)
+    yield ("single_unit_1M", data, {"positive": pos, "negative": neg},
+           ("fast", "linear", "fast-stream"))
+    for text_len, data, pos, neg in sc.mid_scale((100_000, 500_000)):
+        yield (f"mid_scale_{text_len}", data, {"positive": pos, "negative": neg},
+               ("fast", "fast-stream"))
+
+
+def stress_commit_check(enc, cps, label: str) -> dict:
+    """The features and commit kernels against their plain versions
+    (features_commit_check) on a fast-stream encoder's text, padded as the
+    engine pads it, with the probe kernel's matches: on one unit as long
+    as the text, the longest chain the commit's walk can be given."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch.engine import pad_codepoints
+    from wordpiece_tpu_torch.ops import match_fast as mf
+
+    st = {k: v for k, v in enc._statics.items() if k != "unk_id"}
+    cp_pad = torch.from_numpy(pad_codepoints(np.asarray(cps, np.int32), st["max_len"]))
+    cp_pad = cp_pad.to(enc.device)
+    n = cp_pad.shape[0] - st["max_len"]
+    row, _ = features_commit_check(
+        cp_pad[:n], int(cps.shape[0]), st["max_len"],
+        {"probe": lambda f: mf.match_positions(cp_pad, f.window, f.wp, enc.table, **st)},
+        enc._statics["unk_id"], label)
+    return row
+
+
+def stress_phase(card: str, cases=None, device="cuda") -> tuple:
+    """Phase 15 (module docstring): each case and sign through each of its
+    engines against the native oracle, every launch count set to 0 just
+    before the encode and read just after; on a text of one unit, the
+    features and commit kernels also against their plain versions.
+    Returns (each kernel's launches summed over the phase's encodes, the
+    largest error of those checks)."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch import api
+    from wordpiece_tpu_torch.core import unicode as uni
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+    from wordpiece_tpu_torch.dryrun import KERNELS
+    from wordpiece_tpu_torch.engine_linear import LinearEncoder
+    from wordpiece_tpu_torch.engine_word import WIDTHS
+    from wordpiece_tpu_torch.runtime import loader
+
+    total = dict.fromkeys(KERNELS, 0)
+    fc_err = 0
+    t_phase = time.perf_counter()
+    for name, data, signs, engines in (stress_cases_of() if cases is None else cases):
+        cps = uni.decode_utf8(data)
+        space = np.asarray(uni.is_space(cps))
+        edges = np.concatenate([[-1], np.flatnonzero(space), [cps.shape[0]]])
+        longest_unit = int(np.diff(edges).max()) - 1
+        for sign, lines in signs.items():
+            vocab = parse_vocab(lines)
+            t0 = time.perf_counter()
+            want = loader.VocabHandle(vocab).encode(cps)
+            oracle_s = time.perf_counter() - t0
+            if vocab.unk_token_id != -1 or want.shape[0] == 0:
+                raise AssertionError(f"stress {name} {sign}: unk_id {vocab.unk_token_id}, "
+                                     f"{want.shape[0]} oracle ids")
+            for engine in engines:
+                enc = api.make_encoder(vocab, engine, device=device)
+                scalar = None
+                if engine in ("fast", "linear"):
+                    scalar = enc._scalar = CountingScalar(loader.VocabHandle(vocab))
+                for c in KERNELS.values():
+                    c.launches = 0
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = api._encode_with(enc, data)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in KERNELS.items()}
+                for k, v in launches.items():
+                    total[k] += v
+                ok = got.dtype == np.int32 and np.array_equal(got, want)
+                row = {"phase": "stress", "case": name, "sign": sign, "engine": engine,
+                       "card": card, "chars": int(cps.shape[0]), "longest_unit": longest_unit,
+                       "vocab": vocab.size, "max_len": int(vocab.max_len),
+                       "unk_id": vocab.unk_token_id, "ids": int(got.shape[0]),
+                       "sha1": hashlib.sha1(got.tobytes()).hexdigest()[:16],
+                       "equal_native_oracle": bool(ok), "oracle_s": oracle_s,
+                       "seconds": seconds, "launches": launches}
+                if engine == "fast":
+                    row["routes"] = {"dispatches": launches["word_match_commit"],
+                                     "overflow_units": scalar.single,
+                                     "host_units": scalar.batched}
+                    row.update(verify_repairs=enc.verify_repairs,
+                               device_fallbacks=enc.device_fallbacks)
+                elif engine == "linear":
+                    row["routes"] = {"device_batches": enc.device_batches,
+                                     "scalar_route_units": scalar.batched,
+                                     "full_fetches": enc.full_fetches}
+                emit_json(row)
+                if not ok:
+                    raise AssertionError(f"stress {name} {sign} {engine}: ids differ from the "
+                                         f"native oracle")
+                stress_launch_check(name, engine, enc, row, longest_unit, max(WIDTHS),
+                                    LinearEncoder.MAX_SLOT_LEN)
+                if engine == "fast-stream" and longest_unit == cps.shape[0]:
+                    fc_row = stress_commit_check(enc, cps, f"{name}_{sign}")
+                    fc_err = max(fc_err, fc_row["max_abs_err"])
+                    emit_json({"phase": "features_commit_vs_plain", **fc_row})
+    emit_json({"phase": "stress_done", "seconds": time.perf_counter() - t_phase,
+               "launches": total, "features_commit_max_abs_err": fc_err})
+    return total, fc_err
+
+
+def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_len) -> None:
+    """Phase 15's launch and route checks of one encode (row)."""
+    got = row["launches"]
+    split = got["word_match"] + got["word_commit"]
+    if engine == "fast":
+        routes = row["routes"]
+        if row["verify_repairs"] or row["device_fallbacks"]:
+            raise AssertionError(f"stress {name}: the word engine repaired or rescued: {row}")
+        want_zero = ("match_positions", "compute_features", "commit_with_positions",
+                     "match_from_sa")
+        ok = (got["word_match_commit"] == got["compact"] and not split
+              and not any(got[k] for k in want_zero))
+        # A text of one unit wider than the widest bucket: the overflow route.
+        if longest_unit == row["chars"] and longest_unit > widest:
+            ok = ok and routes == {"dispatches": 0, "overflow_units": 1, "host_units": 0}
+        elif longest_unit <= widest:
+            ok = ok and routes["dispatches"] > 0 and routes["overflow_units"] == 0
+    elif engine == "linear":
+        b = enc.device_batches
+        ok = (got["match_from_sa"] == got["compute_features"] == got["commit_with_positions"]
+              == b and not split and not got["word_match_commit"] and not got["compact"]
+              and not got["match_positions"])
+        if row["max_len"] > max_slot_len:  # the scalar route
+            ok = ok and b == 0 and row["routes"]["scalar_route_units"] > 0
+        else:
+            ok = ok and b > 0
+    else:
+        ok = (got["compute_features"] == got["match_positions"] == got["commit_with_positions"]
+              == 1 and not split and not got["word_match_commit"] and not got["compact"]
+              and not got["match_from_sa"])
+    if not ok:
+        raise AssertionError(f"stress {name} {engine}: launches or routes {row}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1832,11 +2108,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of wordpiece_tpu_torch on one GPU")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="also write the profiled encode's Chrome trace to PATH")
-    ap.add_argument("--compare-linear-match", default=None, metavar="DIR",
-                    help="also time the linear match kernels of the checkout at DIR beside "
-                         "this one's, in turns, on the same inputs (phase 7)")
+    ap.add_argument("--compare", default=None, metavar="DIR",
+                    help="also time the checkout at DIR beside this one, in turns: its linear "
+                         "match kernels (phase 7) and its fast-stream and linear 10 MB en "
+                         "encodes with the fast-stream parts (phase 10)")
     opts = ap.parse_args(argv)
-    trace_path, compare_linear_match = opts.trace, opts.compare_linear_match
+    trace_path, compare = opts.trace, opts.compare
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2377,7 +2654,7 @@ def main(argv=None) -> int:
     # events around CUDA graph replays; held to the native oracle first.
     cps = lin_first["en"]
     m = enc_lin._merge
-    x_np, c_np, cap, max_chain = enc_lin.batch_inputs(cps)
+    x_np, c_np, cap = enc_lin.batch_inputs(cps)
 
     def on_card(a):
         return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(dev)
@@ -2388,7 +2665,7 @@ def main(argv=None) -> int:
     statics = dict(bits=m.bits, per=m.per, nk=m.nk, max_len=max_len, unk_id=enc_lin._unk_id)
 
     def run_batch():
-        return _linear_batch_compact(x_t, c_t, n, *tabs, **statics, cap=cap, max_chain=max_chain)
+        return _linear_batch_compact(x_t, c_t, n, *tabs, **statics, cap=cap)
 
     fused, ids_d, _ = run_batch()
     count = int(fused[0])
@@ -2403,8 +2680,7 @@ def main(argv=None) -> int:
     best_m = match_from_sa(*match_args, max_len=max_len)
     # Both kernels against their plain versions at this batch's shapes.
     lin_row, _ = features_commit_check(cw, n, max_len, {"suffix_array": best_m},
-                                       enc_lin._unk_id, {"n": np_, "longest_unit": max_chain},
-                                       "linear_en_first_batch")
+                                       enc_lin._unk_id, "linear_en_first_batch")
     emit_json({"phase": "features_commit_vs_plain", **lin_row})
 
     # The match kernels against their plain version: this batch, the
@@ -2450,8 +2726,8 @@ def main(argv=None) -> int:
                    "n_s": int(args[0].shape[0]), "n_text": int(args[5].shape[0]), "max_len": ml,
                    **lm_times[name]})
     lm_timing = lm_times["linear_en_first_batch"]
-    if compare_linear_match:
-        emit_json(linear_match_compare(compare_linear_match, card, {
+    if compare:
+        emit_json(linear_match_compare(compare, card, {
             "linear_en_first_batch": (match_args, max_len),
             "max_s_2^20": (max_s_args, max_s_len)}))
     parts = {
@@ -2462,8 +2738,7 @@ def main(argv=None) -> int:
         "features": lambda: compute_features(cw, n, max_len),
         "match": lambda: match_from_sa(*match_args, max_len=max_len),
         "match_plain": lambda: match_from_sa_plain(*match_args, max_len=max_len),
-        "commit": lambda: commit_with_positions(*best_m, feats, n, unk_id=enc_lin._unk_id,
-                                                max_chain=max_chain),
+        "commit": lambda: commit_with_positions(*best_m, feats, n, unk_id=enc_lin._unk_id),
     }
     part_ms = {name: graph_ms(fn, 20) for name, fn in parts.items()}
     part_launches = {}  # kernel launches of one call, from its profile
@@ -2485,14 +2760,18 @@ def main(argv=None) -> int:
     nbytes["suffix_array_lcp"] = int(s_dev.numel()) * 4 * 4
     emit_json({"phase": "linear_batch_time", "corpus": "en_10MB", "card": card,
                "shapes": {"n": n, "np": np_, "nm": np_ + m.nv_pad, "nk": m.nk, "max_len": max_len,
-                          "cap": cap, "max_chain": max_chain, "count": count,
+                          "cap": cap, "count": count,
                           "s_doubling": int(s_dev.numel())},
-               "ms": part_ms, "launches": part_launches, "bytes": nbytes,
+               "ms": part_ms, "launches": part_launches,
+               "batch_graph_nodes": launches_per_call(run_batch), "bytes": nbytes,
                "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}})
 
     # ---- 8-10. the fast-stream engine --------------------------------------------
     fc, stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,
                                       np.random.default_rng(2026))
+    if compare:
+        emit_json(stream_compare(compare, card, corpora["en"][0], bert_lines_en,
+                                 corpora["en"][2]))
 
     # ---- 11-12. the word kernel split in two; the word sharded paths -------
     cps_en = [torch.from_numpy(_narrow(m)).to(dev) for m in captured["en"]]
@@ -2506,6 +2785,9 @@ def main(argv=None) -> int:
     # ---- 14. the cross-engine harness ------------------------------------------
     del corpora, captured, goldens
     hns = harness_phase(card)
+
+    # ---- 15. the reference's stress configurations -----------------------------
+    stress, stress_fc_err = stress_phase(card)
 
     emit_json({"phase": "done", "seconds": time.perf_counter() - t_start})
     t_en = timing["en"]
@@ -2525,6 +2807,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "dryrun_launches": dry["word_match_commit"],
             "harness_launches": hns["word_match_commit"],
+            "stress_launches": stress["word_match_commit"],
         },
         {
             "name": "compact_from_counts",
@@ -2541,9 +2824,11 @@ def main(argv=None) -> int:
             "library_ms": t_en["compact"]["library_ms"],
             "dryrun_launches": dry["compact"],
             "harness_launches": hns["compact"],
+            "stress_launches": stress["compact"],
         },
         {**stream_kernel, "dryrun_launches": dry["match_positions"],
-         "harness_launches": hns["match_positions"]},
+         "harness_launches": hns["match_positions"],
+         "stress_launches": stress["match_positions"]},
         *({
             "name": name,
             "route": "cuda",
@@ -2551,7 +2836,7 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "layout": layout,
             "launches": fc["launches"][name],
-            "max_abs_err": max(fc["max_err"], lin_row["max_abs_err"]),
+            "max_abs_err": max(fc["max_err"], lin_row["max_abs_err"], stress_fc_err),
             "ms": fc["timing"][part]["ms"],
             "plain_ms": fc["timing"][part]["plain_ms"],
             "bound_ms": fc["timing"][part]["bound_ms"],
@@ -2559,6 +2844,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "dryrun_launches": dry[name],
             "harness_launches": hns[name],
+            "stress_launches": stress[name],
         } for name, part, source, replaces, layout in (
             ("compute_features", "features", "wordpiece_tpu_torch/csrc/text_features.cu",
              "wordpiece_tpu/ops/text_features.py:90",
@@ -2566,7 +2852,7 @@ def main(argv=None) -> int:
              "memory, reverse min scan of three flags with decoupled look-back"),
             ("commit_with_positions", "commit", "wordpiece_tpu_torch/csrc/commit.cu",
              "wordpiece_tpu/ops/commit.py:49",
-             f"{cc.KERNEL_LAUNCHES} launches a call whatever max_chain: a tile-local walk "
+             f"{cc.KERNEL_LAUNCHES} launches a call, walked to the fixed point: a tile-local walk "
              "(doubling in shared memory, one carry a tile), the emit (forward sum scan with "
              "decoupled look-back), the fill"),
         )),
@@ -2589,6 +2875,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "dryrun_launches": dry["match_from_sa"],
             "harness_launches": hns["match_from_sa"],
+            "stress_launches": stress["match_from_sa"],
         },
         *({
             "name": name,
@@ -2605,6 +2892,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "dryrun_launches": dry[name],
             "harness_launches": hns[name],
+            "stress_launches": stress[name],
         } for name, part, replaces, layout in (
             ("word_match", "match", "wordpiece_tpu/ops/word_kernel.py:77",
              f"{'global' if sharded['grid_2d_1x1']['launches_global']['word_match'] else 'shared'}"

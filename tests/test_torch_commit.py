@@ -1,11 +1,12 @@
 """The port's greedy commit (ops/commit.py) against the JAX package's
-commit_with_positions / commit, on the same numpy-seeded matches.  The
-port's plain version runs a fixed number of pointer-doubling rounds where
-the JAX package loops until nothing changes; both must give the same ids,
-positions and count.  A numpy model of the CUDA kernels' tile-local walk
-(csrc/commit.cu: doubling inside each tile, one carry between tiles, the
-kill across tiles from one byte a tile) is held to the JAX package too,
-at the kernels' tile and at a small one.  Integers: exact."""
+commit_with_positions / commit, on the same numpy-seeded matches.  Both
+loop their pointer-doubling rounds until a round marks nothing new; they
+must give the same ids, positions and count, with an UNK id of 7 and with
+-1, the id of a vocabulary without [UNK].  A numpy model of the CUDA
+kernels' tile-local walk (csrc/commit.cu: doubling inside each tile, one
+carry between tiles, the kill across tiles from one byte a tile) is held
+to the JAX package too, at the kernels' tile and at a small one.
+Integers: exact."""
 
 from functools import partial
 
@@ -18,13 +19,13 @@ import torch
 from wordpiece_tpu.ops import commit as jcommit
 from wordpiece_tpu.ops import text_features as jtf
 from wordpiece_tpu_torch.bench import stream_cases
-from wordpiece_tpu_torch.engine_linear import _longest_unit
 from wordpiece_tpu_torch.ops import commit
 from wordpiece_tpu_torch.ops import text_features as tf
 
 torch.set_num_threads(1)
 
 UNK = 7
+UNKS = [UNK, -1]  # -1: the random-split vocabularies' unk_id (no [UNK] line)
 
 
 def random_case(seed: int, n: int, n_valid: int, max_len: int):
@@ -41,35 +42,42 @@ def random_case(seed: int, n: int, n_valid: int, max_len: int):
     return cp, feats, best_id, best_len
 
 
-def jax_commit(cp, n_valid, max_len, best_id, best_len):
-    @partial(jax.jit, static_argnames=("max_len",))
-    def run(cp, n_valid, best_id, best_len, *, max_len):
+def jax_commit(cp, n_valid, max_len, best_id, best_len, unk=UNK):
+    @partial(jax.jit, static_argnames=("max_len", "unk"))
+    def run(cp, n_valid, best_id, best_len, *, max_len, unk):
         feats = jtf.compute_features(cp, n_valid, max_len)
-        return jcommit.commit_with_positions(best_id, best_len, feats, n_valid, unk_id=UNK)
+        return jcommit.commit_with_positions(best_id, best_len, feats, n_valid, unk_id=unk)
 
     out = run(jnp.asarray(cp), jnp.int32(n_valid), jnp.asarray(best_id),
-              jnp.asarray(best_len), max_len=max_len)
+              jnp.asarray(best_len), max_len=max_len, unk=unk)
     return [np.asarray(o) for o in out]
 
 
-@pytest.mark.parametrize("bound", ["n", "longest_unit"])
+def single_unit(chain: int, n: int):
+    """One unit of `chain` codepoints at 0, spaces to n, a one-codepoint
+    match at each: a walk of `chain` steps."""
+    cp = np.full(n, 32, dtype=np.int32)
+    cp[:chain] = 97
+    best_len = np.where(cp == 97, 1, 0).astype(np.int32)
+    best_id = np.where(best_len > 0, 3, -1).astype(np.int32)
+    return cp, best_id, best_len
+
+
+@pytest.mark.parametrize("unk", UNKS)
 @pytest.mark.parametrize("seed,n,n_valid,max_len", [(0, 256, 256, 6), (1, 256, 190, 3), (2, 37, 37, 16)])
-def test_commit_with_positions_equals_jax(seed, n, n_valid, max_len, bound):
+def test_commit_with_positions_equals_jax(seed, n, n_valid, max_len, unk):
     cp, feats, best_id, best_len = random_case(seed, n, n_valid, max_len)
-    max_chain = n if bound == "n" else _longest_unit(cp[:n_valid])
     ids, positions, count = commit.commit_with_positions(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
-        unk_id=UNK, max_chain=max_chain,
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid, unk_id=unk,
     )
-    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len, unk)
     assert int(count) == int(want_count) > 0
     np.testing.assert_array_equal(ids.numpy(), want_ids)
     np.testing.assert_array_equal(positions.numpy(), want_pos)
     c = int(count)
     assert (np.diff(positions.numpy()[:c]) > 0).all()
     short_ids, short_count = commit.commit(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
-        unk_id=UNK, max_chain=max_chain,
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid, unk_id=unk,
     )
     np.testing.assert_array_equal(short_ids.numpy(), want_ids)
     assert int(short_count) == c
@@ -77,83 +85,79 @@ def test_commit_with_positions_equals_jax(seed, n, n_valid, max_len, bound):
 
 def test_long_within_unit_chain():
     """One unit of 2,000 single-codepoint tokens: a chain of 2,000 steps,
-    reached in doubling_rounds(2000) = 11 rounds with no host check; a
-    bound below the chain leaves its tail unvisited."""
+    walked to the fixed point, equal to the JAX package."""
     n = 2048
-    cp = np.full(n, 32, dtype=np.int32)
-    cp[:2000] = 97
+    cp, best_id, best_len = single_unit(2000, n)
     feats = tf.compute_features(torch.from_numpy(cp), n, 1)
-    best_len = np.where(cp == 97, 1, 0).astype(np.int32)
-    best_id = np.where(best_len > 0, 3, -1).astype(np.int32)
-    assert _longest_unit(cp) == 2000 and commit.doubling_rounds(2000) == 11
     want_ids, want_pos, want_count = jax_commit(cp, n, 1, best_id, best_len)
     assert int(want_count) == 2000
-    for max_chain in (n, 2000):
-        ids, positions, count = commit.commit_with_positions(
-            torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n,
-            unk_id=UNK, max_chain=max_chain,
-        )
-        assert int(count) == 2000
-        np.testing.assert_array_equal(ids.numpy(), want_ids)
-        np.testing.assert_array_equal(positions.numpy(), want_pos)
-    _, _, short = commit.commit_with_positions(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n,
-        unk_id=UNK, max_chain=1000,
+    ids, positions, count = commit.commit_with_positions(
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n, unk_id=UNK,
     )
-    assert int(short) == 1024
+    assert int(count) == 2000
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(positions.numpy(), want_pos)
 
 
-@pytest.mark.parametrize(
-    "max_chain,rounds", [(1, 0), (2, 1), (3, 2), (4, 2), (5, 3), (1024, 10), (1025, 11)]
-)
-def test_doubling_rounds(max_chain, rounds):
-    assert commit.doubling_rounds(max_chain) == rounds
-    # After k rounds the visited set holds F^j(seed) for every j < 2^k.
-    assert 2**rounds >= max_chain and (rounds == 0 or 2 ** (rounds - 1) < max_chain)
+@pytest.mark.parametrize("chain", [1, 2, 3, 4, 5, 1024, 1025])
+def test_fixed_point_rounds(chain):
+    """A unit of `chain` one-codepoint matches: ids and positions equal
+    the JAX package's, and the plain walk stops one round after its last
+    new mark.  After k rounds the visited set holds F^j(seed) for every
+    j < 2^k, so the chain's last position is first marked in round
+    (chain - 1).bit_length() (none for a chain of 1, which its seed
+    covers), and the round after it marks nothing."""
+    n = max(128, 2 * chain)
+    cp, best_id, best_len = single_unit(chain, n)
+    feats = tf.compute_features(torch.from_numpy(cp), n, 1)
+    want_ids, want_pos, want_count = jax_commit(cp, n, 1, best_id, best_len)
+    ids, positions, count = commit.commit_with_positions(
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n, unk_id=UNK,
+    )
+    assert int(count) == int(want_count) == chain
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    np.testing.assert_array_equal(positions.numpy(), want_pos)
+    assert commit.commit_with_positions_plain.rounds == (chain - 1).bit_length() + 1
 
 
 # ---- the kernels' edge cases (bench/stream_cases.py), on the plain version ----------
 CASES = stream_cases.feature_cases()
 
 
-@pytest.mark.parametrize("bound", ["n", "longest_unit"])
+@pytest.mark.parametrize("unk", UNKS)
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_commit_edge_cases_equal_jax(name, bound):
+def test_commit_edge_cases_equal_jax(name, unk):
     """The features' edge cases with random matches inside the window
-    (stream_cases.random_matches), max_chain n and the longest unit: ids,
-    positions and count equal the JAX package's, whole with the padding."""
+    (stream_cases.random_matches), at each UNK id: ids, positions and
+    count equal the JAX package's, whole with the padding."""
     cp, n_valid, max_len = CASES[name]
     feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
     rng = np.random.default_rng(len(name))
     best_id, best_len = stream_cases.random_matches(rng, feats.window.numpy())
-    n = cp.shape[0]
-    max_chain = n if bound == "n" else _longest_unit(cp[:n_valid])
     ids, positions, count = commit.commit_with_positions(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
-        unk_id=UNK, max_chain=max_chain,
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid, unk_id=unk,
     )
-    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len, unk)
     assert int(count) == int(want_count)
     np.testing.assert_array_equal(ids.numpy(), want_ids)
     np.testing.assert_array_equal(positions.numpy(), want_pos)
     assert ids.dtype == positions.dtype == count.dtype == torch.int32 and count.dim() == 0
 
 
-def test_q_run_drives_max_chain():
+def test_q_run_walks_to_fixed_point():
     """The dry run's 5,000-`q` unit with one-codepoint matches: a chain of
-    5,000 steps, doubling_rounds(5000) = 13 rounds, equal to the JAX
-    package's loop to the fixed point."""
+    5,000 steps, walked in 14 rounds (the last marks nothing), equal to
+    the JAX package's loop to the fixed point."""
     cp = stream_cases.q_run()
     n = cp.shape[0]
     feats = tf.compute_features(torch.from_numpy(cp), n, 1)
     best_id, best_len = stream_cases.single_matches(cp)
-    assert _longest_unit(cp) == 5000 and commit.doubling_rounds(5000) == 13
     want_ids, want_pos, want_count = jax_commit(cp, n, 1, best_id, best_len)
     assert int(want_count) == 5004
     ids, positions, count = commit.commit_with_positions(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n,
-        unk_id=UNK, max_chain=5000,
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n, unk_id=UNK,
     )
+    assert commit.commit_with_positions_plain.rounds == 14
     assert int(count) == 5004
     np.testing.assert_array_equal(ids.numpy(), want_ids)
     np.testing.assert_array_equal(positions.numpy(), want_pos)
@@ -172,7 +176,7 @@ def test_cpu_call_builds_no_library(monkeypatch):
     before = commit.commit_with_positions.launches
     cp, feats, best_id, best_len = random_case(3, 300, 300, 6)
     commit.commit(torch.from_numpy(best_id), torch.from_numpy(best_len), feats, 300,
-                  unk_id=UNK, max_chain=300)
+                  unk_id=UNK)
     assert commit.commit_with_positions.launches == before
 
 
@@ -183,33 +187,31 @@ def test_mixed_devices_raise():
     feats.ss = feats.ss.to("meta")
     with pytest.raises(ValueError, match="ss on meta"):
         commit.commit_with_positions(torch.from_numpy(best_id), torch.from_numpy(best_len),
-                                     feats, 64, unk_id=UNK, max_chain=64)
+                                     feats, 64, unk_id=UNK)
 
 
 # ---- the commit kernels' tile crossings (bench/stream_cases.commit_cases) ----------
 COMMIT_CASES = stream_cases.commit_cases()
 
 
-@pytest.mark.parametrize("bound", ["n", "longest_unit"])
+@pytest.mark.parametrize("unk", UNKS)
 @pytest.mark.parametrize("name", sorted(COMMIT_CASES))
-def test_commit_tile_crossings_equal_jax(name, bound):
+def test_commit_tile_crossings_equal_jax(name, unk):
     """Units at tile edges, words over 2 and 3 tiles with their only
     failure in the last, a failure in a tile with no unit start, all-space
     tiles between units, n_valid after a straddling unit: the plain
-    version equals the JAX package, with exactly one UNK, at max_chain n
-    and the longest unit."""
+    version equals the JAX package, with exactly one UNK, at each UNK
+    id."""
     cp, n_valid, max_len, best_id, best_len = COMMIT_CASES[name]
     feats = tf.compute_features(torch.from_numpy(cp), n_valid, max_len)
-    max_chain = cp.shape[0] if bound == "n" else _longest_unit(cp[:n_valid])
     ids, positions, count = commit.commit_with_positions(
-        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid,
-        unk_id=UNK, max_chain=max_chain,
+        torch.from_numpy(best_id), torch.from_numpy(best_len), feats, n_valid, unk_id=unk,
     )
-    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len)
+    want_ids, want_pos, want_count = jax_commit(cp, n_valid, max_len, best_id, best_len, unk)
     assert int(count) == int(want_count) > 0
     np.testing.assert_array_equal(ids.numpy(), want_ids)
     np.testing.assert_array_equal(positions.numpy(), want_pos)
-    assert int((want_ids == UNK).sum()) == 1
+    assert int((want_ids == unk).sum()) == 1
 
 
 HAS_START, FAIL_HEAD, FAIL_TAIL = 1, 2, 4  # csrc/commit.cu's byte a tile

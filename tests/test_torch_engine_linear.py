@@ -123,11 +123,10 @@ def test_linear_batch_core_and_compact_equal_jax():
     lines, vocab, m, x, c, n = batch_inputs()
     statics = dict(bits=m["bits"], per=m["per"], nk=m["nk"], max_len=vocab.max_len,
                    unk_id=vocab.unk_token_id)
-    bound = dict(max_chain=x.shape[0])
     tabs = [m["tok_keys"], m["tok_len"], m["tok_id"], m["tok_kind"]]
     t16 = [torch.from_numpy(a.view(np.int16)) for a in (x, c)]
     ids, positions, count = _linear_batch_core(
-        *t16, n, *[torch.from_numpy(a) for a in tabs], **statics, **bound
+        *t16, n, *[torch.from_numpy(a) for a in tabs], **statics
     )
     jargs = [jnp.asarray(x), jnp.asarray(c), jnp.int32(n)] + [jnp.asarray(a) for a in tabs]
     want = [np.asarray(o) for o in jel._linear_batch_device(*jargs, **statics)]
@@ -137,7 +136,7 @@ def test_linear_batch_core_and_compact_equal_jax():
     count = int(count)
     for cap in (count // 2, count + 64):
         fused, full_ids, full_pos = _linear_batch_compact(
-            *t16, n, *[torch.from_numpy(a) for a in tabs], **statics, **bound, cap=cap
+            *t16, n, *[torch.from_numpy(a) for a in tabs], **statics, cap=cap
         )
         np.testing.assert_array_equal(
             fused.numpy(), np.asarray(jel._linear_batch_compact(*jargs, **statics, cap=cap))

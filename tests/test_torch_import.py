@@ -4,6 +4,8 @@ falling back to the CPU."""
 
 import ast
 import glob
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -194,3 +196,34 @@ def test_cli_fast_stream_matches_jax(tmp_path, capsys):
     assert jax_main(args + ["--out-file", str(ref)]) == 0
     assert capsys.readouterr().out == out_mine
     assert mine.read_bytes() == ref.read_bytes() and mine.read_text().startswith("1 2 1 3 ")
+
+
+# (module, function, the port's own extra parameters): the JAX package's
+# module of the same name holds the counterpart.
+SIGNATURES = [
+    ("ops.commit", "commit", ()),
+    ("ops.commit", "commit_with_positions", ()),
+    ("engine", "encode_padded", ("combine",)),
+    ("parallel.sharding", "encode_data_parallel", ()),
+    ("parallel.sharding", "encode_2d_parallel", ()),
+    ("engine_linear", "_linear_batch_core", ()),
+    ("engine_linear", "_linear_batch_compact", ()),
+]
+
+
+@pytest.mark.parametrize("module,name,extra", SIGNATURES, ids=[s[1] for s in SIGNATURES])
+def test_signature_matches_jax(module, name, extra):
+    """The commit and its callers take their JAX counterparts' parameters:
+    the commit exactly their names, the callers exactly their keyword
+    statics (no bound on the walk), besides the port's own extras."""
+
+    def params(package, kinds=None):
+        fn = getattr(importlib.import_module(f"{package}.{module}"), name)
+        return [p.name for p in inspect.signature(fn).parameters.values()
+                if kinds is None or p.kind in kinds]
+
+    if module == "ops.commit":
+        assert params("wordpiece_tpu_torch") == params("wordpiece_tpu")
+    kw = (inspect.Parameter.KEYWORD_ONLY, inspect.Parameter.VAR_KEYWORD)
+    mine = [p for p in params("wordpiece_tpu_torch", kw) if p not in extra]
+    assert mine == params("wordpiece_tpu", kw)

@@ -37,6 +37,12 @@ def corpus_case():
     return text, lines
 
 
+def chain_case() -> str:
+    """Short units, then one unit of 600 `a`: the rank that holds it walks
+    a chain of hundreds of steps, a rank of short units chains of one."""
+    return "a " * 600 + "a" * 600
+
+
 def partial_matches(rank: int, n: int = 257):
     """A rank's made-up partition matches for the combine check."""
     rng = np.random.default_rng(100 + rank)
@@ -59,7 +65,7 @@ def worker(cfg: dict) -> None:
     from wordpiece_tpu_torch.core import unicode as uni
     from wordpiece_tpu_torch.core.vocab import parse_vocab
     from wordpiece_tpu_torch.engine import index_statics
-    from wordpiece_tpu_torch.engine_linear import _longest_unit
+    from wordpiece_tpu_torch.ops import commit
     from wordpiece_tpu_torch.ops.match_fast import load_table
     from wordpiece_tpu_torch.parallel import sharding as sh
     from wordpiece_tpu_torch.parallel import vocab_parallel as vp
@@ -76,9 +82,13 @@ def worker(cfg: dict) -> None:
     shards, lens = sh.shard_codepoints(cps, world)
     ids, counts, total = sh.encode_data_parallel(
         sh.pad_shards(shards, enc._statics["max_len"]), lens, enc.table, mesh=mesh,
-        **enc._statics, max_chain=_longest_unit(cps),
+        **enc._statics,
     )
     out.update(ids_1d=ids.numpy(), counts_1d=counts.numpy(), total_1d=np.array(int(total)))
+    # Each rank walks its shard to its own fixed point, with no collective
+    # inside the walk: the ranks' round counts differ.
+    out["chain_1d"] = enc.encode_codepoints(uni.decode_utf8(chain_case().encode()).astype(np.int32))
+    out["rounds_1d"] = np.array(commit.commit_with_positions_plain.rounds)
     try:
         sh.ShardedFastEncoder(vocab, mesh=mesh, device="cuda")
         out["cuda_error"] = np.array("")
@@ -92,7 +102,7 @@ def worker(cfg: dict) -> None:
         shards, lens = sh.shard_codepoints(cps, 2)
         ids, counts, total = sh.encode_2d_parallel(
             sh.pad_shards(shards, sidx.max_len), lens, load_table(sidx.tables[grid.v], "cpu"),
-            mesh=grid, **index_statics(sidx), max_chain=_longest_unit(cps),
+            mesh=grid, **index_statics(sidx),
         )
         out.update(ids_2d=ids.numpy(), counts_2d=counts.numpy(), total_2d=np.array(int(total)))
         best_id, best_len = partial_matches(rank)
@@ -289,6 +299,22 @@ def test_encode_2d_parallel_equal_jax(runs):
         assert int(out["total_2d"]) == int(total) == want.shape[0]
         width = int(counts.max())
         np.testing.assert_array_equal(out["ids_2d"], ids[:, :width])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ranks_walk_to_their_own_fixed_point(world, runs):
+    """The commit runs on each rank before any collective and loops until
+    its own shard's walk stops: a rank of short units stops after one
+    round, the rank of the 600-codepoint unit after more, and every rank
+    still gathers the oracle's ids."""
+    from wordpiece_tpu_torch.core import unicode as uni
+
+    _, vocab, _ = cps_and_vocabs()
+    want = oracle(uni.decode_utf8(chain_case().encode()).astype(np.int32), vocab)
+    rounds = [int(out["rounds_1d"]) for out in runs[world]]
+    for rank, out in enumerate(runs[world]):
+        np.testing.assert_array_equal(out["chain_1d"], want, err_msg=f"rank {rank}")
+    assert min(rounds) == 1 and max(rounds) > 1, rounds
 
 
 def test_grid_rejects_what_it_cannot_run(runs):

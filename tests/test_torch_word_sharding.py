@@ -157,6 +157,9 @@ def worker(cfg: dict) -> None:
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "wordpiece_tpu.")))
     assert not loaded, f"a worker imported {loaded[:3]}"
     np.savez(os.path.join(cfg["out"], f"rank{rank}.npz"), **out)
+    # No rank leaves while another still connects the subgroups that the
+    # CUDA encoders' grids made above (a peer's exit fails that connect).
+    dist.barrier()
     dist.destroy_process_group()
 
 

@@ -79,7 +79,7 @@ def engine_case(lines: list[str], text: str, *, doubling: bool) -> dict:
     if doubling:
         return _numpy_case(*enc.doubling_inputs(cps), enc.max_len)
     m = enc._merge
-    x_dense, cps_pad, _, _ = enc.batch_inputs(cps)
+    x_dense, cps_pad, _ = enc.batch_inputs(cps)
 
     def tensor(a):
         return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)

@@ -5,11 +5,10 @@
 // wordpiece_tpu/ops/commit.py::commit_with_positions (its loop to the fixed
 // point :82-99, the segment kill :105-112 and the output :118-126).
 // Together they compute the same function as that loop, and as the plain
-// PyTorch version commit_with_positions_plain in ops/commit.py once its
-// max_chain reaches the longest unit: whole outputs with the padding, ids
+// PyTorch version commit_with_positions_plain in ops/commit.py, which
+// loops to the fixed point as well: whole outputs with the padding, ids
 // int32[n] (-2 past count), positions int32[n] (-1 past count) and count,
-// from best_id/best_len and the text features.  max_chain does not reach
-// these kernels: they always run to the fixed point.
+// from best_id/best_len and the text features, for every input.
 //
 // The walk is the orbit of F(i) = ss[i + best_len[i]] on a match, else
 // ss[wnext[min(i + window[i], n)]], from every unit start (a non-space

@@ -60,7 +60,6 @@ from .core.length_tables import build_length_tables, load_length_tables
 from .core.oracle import encode_oracle
 from .core.vocab import Vocabulary, build_index, parse_vocab
 from .engine import index_statics
-from .engine_linear import _longest_unit
 from .engine_word import resolve_device
 from .ops import commit as commit_ops
 from .ops import commit_cuda as cc
@@ -316,8 +315,7 @@ def _stream_phase(r: _Rank, vocab) -> None:
     want = np.asarray(encode_oracle(cps, vocab), dtype=np.int32)
 
     def encode():
-        ids, counts, total = fn(cp_pad, lens, table, mesh=grid, **statics,
-                                max_chain=_longest_unit(cps))
+        ids, counts, total = fn(cp_pad, lens, table, mesh=grid, **statics)
         return assemble_ids(ids.cpu().numpy(), counts.cpu().numpy()), int(total), want, want.shape[0]
 
     r.run(path, grid, encode, launched=STREAM_KERNELS, per_encode=per_encode)

@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from .core.vocab import Vocabulary, VocabIndex, build_index
-from .engine_linear import _longest_unit
 from .engine_word import resolve_device
 from .ops import commit as commit_ops
 from .ops import match_fast
@@ -62,11 +61,9 @@ def encode_padded(
     mult1: int,
     mult2: int,
     unk_id: int,
-    max_chain: int,
     combine=None,
 ):
     """Returns (ids int32[n] padded with -2, count int32 0-d tensor).
-    max_chain: the longest unit of the text (ops.commit.commit).
     combine: None, or a function that merges the matches against `table`
     with those of other table partitions before the commit
     (parallel/vocab_parallel.combine_partial_matches)."""
@@ -85,9 +82,7 @@ def encode_padded(
     )
     if combine is not None:
         best_id, best_len = combine(best_id, best_len)
-    return commit_ops.commit(
-        best_id, best_len, feats, n_valid, unk_id=unk_id, max_chain=max_chain
-    )
+    return commit_ops.commit(best_id, best_len, feats, n_valid, unk_id=unk_id)
 
 
 def pad_codepoints(cps: np.ndarray, max_len: int) -> np.ndarray:
@@ -118,12 +113,6 @@ class FastEncoder:
         if n == 0:
             return np.zeros(0, dtype=np.int32)
         cp_pad = torch.from_numpy(pad_codepoints(cps, self._statics["max_len"]))
-        ids, count = encode_padded(
-            cp_pad.to(self.device),
-            n,
-            self.table,
-            **self._statics,
-            max_chain=_longest_unit(cps),
-        )
+        ids, count = encode_padded(cp_pad.to(self.device), n, self.table, **self._statics)
         count = int(count)
         return ids[:count].cpu().numpy()

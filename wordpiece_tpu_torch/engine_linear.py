@@ -89,13 +89,11 @@ def _linear_batch_core(
     nk: int,
     max_len: int,
     unk_id: int,
-    max_chain: int,
 ):
     """The whole linear batch: packed text keys ++ token keys -> nk stable
     LSD passes -> key-local clamped LCP -> who-tables by gather -> 4
     sweeps -> match -> greedy commit.  Returns (ids int32[np_], positions
-    int32[np_], count int32 0-d).  max_chain: see
-    ops.commit.commit_with_positions.
+    int32[np_], count int32 0-d).
 
     Element ids: 0..np_-1 are text suffixes (id == text position),
     np_..np_+nv_pad-1 are vocab tokens.  Ties between a token and an
@@ -109,9 +107,7 @@ def _linear_batch_core(
         bits=bits, per=per, nk=nk, max_len=max_len,
     )
     best_id, best_len = match_from_sa(*sa_tables, feats.window, feats.wp, max_len=max_len)
-    return commit_ops.commit_with_positions(
-        best_id, best_len, feats, n_text, unk_id=unk_id, max_chain=max_chain
-    )
+    return commit_ops.commit_with_positions(best_id, best_len, feats, n_text, unk_id=unk_id)
 
 
 def batch_match_inputs(x_dense, cps_pad, n_text: int, tok_keys, tok_len, tok_id, tok_kind, *,
@@ -213,12 +209,6 @@ def _bucket(n: int, floor: int = 128) -> int:
     extra half-step bucket saves up to 25% work vs pure pow2."""
     p2 = max(floor, 1 << (n - 1).bit_length())
     return 3 * (p2 // 4) if n <= 3 * (p2 // 4) else p2
-
-
-def _longest_unit(cps: np.ndarray) -> int:
-    """Longest run of non-space codepoints (a unit) in cps, at least 1."""
-    edges = np.concatenate([[-1], np.flatnonzero(uni.is_space(cps)), [cps.shape[0]]])
-    return max(1, int(np.diff(edges).max()) - 1)
 
 
 def vocab_tail(vocab: Vocabulary) -> tuple[np.ndarray, np.ndarray]:
@@ -652,14 +642,13 @@ class LinearEncoder:
         return self._encode_batch(cps)
 
     def batch_inputs(self, cps: np.ndarray):
-        """Host side of one batch: (x_dense, cps_pad, cap, max_chain).
+        """Host side of one batch: (x_dense, cps_pad, cap).
 
         Dense text symbols via the per-vocab LUT (one gather on host); pad
         = 2^bits - 1 (sorts last, pushes no tokens, the commit never
         visits it).  Raw codepoints pad as spaces (skipped by the walk).
         One shared pad length buckets both arrays.  Both are uint16 when
-        values fit (pad included); the device widens.  max_chain is the
-        longest unit, which bounds the plain commit's doubling rounds."""
+        values fit (pad included); the device widens."""
         n = int(cps.shape[0])
         m = self._merge
         np_ = _bucket(n)
@@ -669,7 +658,7 @@ class LinearEncoder:
         cdt = np.uint16 if (n == 0 or int(cps.max()) <= 0xFFFF) else np.int32
         cps_pad = np.full(np_, 32, dtype=cdt)
         cps_pad[:n] = cps
-        return x_dense, cps_pad, self._out_cap(n), _longest_unit(cps) if n else 1
+        return x_dense, cps_pad, self._out_cap(n)
 
     def _encode_batch(self, cps: np.ndarray, as_handle: bool = False):
         """One text batch.  as_handle=True returns a handle for
@@ -682,7 +671,7 @@ class LinearEncoder:
                 out = self._encode_batch_doubling(cps, with_positions=as_handle)
             return ("full",) + tuple(out) if as_handle else out
 
-        x_dense, cps_pad, cap, max_chain = self.batch_inputs(cps)
+        x_dense, cps_pad, cap = self.batch_inputs(cps)
         keep: list = []
         with self._on_stream():
             fused, ids, positions = _linear_batch_compact(
@@ -699,7 +688,6 @@ class LinearEncoder:
                 max_len=self.max_len,
                 unk_id=self._unk_id,
                 cap=cap,
-                max_chain=max_chain,
             )
             self.device_batches += 1
             event = None
@@ -734,9 +722,8 @@ class LinearEncoder:
         best_id, best_len = match_from_sa(*sa_tables, feats.window, feats.wp,
                                           max_len=self.max_len)
         self.device_batches += 1
-        ids, positions, count = commit_ops.commit_with_positions(
-            best_id, best_len, feats, n, unk_id=self._unk_id, max_chain=_longest_unit(cps)
-        )
+        ids, positions, count = commit_ops.commit_with_positions(best_id, best_len, feats, n,
+                                                                 unk_id=self._unk_id)
         if with_positions:
             return ids, positions, count
         return ids[: int(count)].cpu().numpy()

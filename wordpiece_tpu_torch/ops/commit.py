@@ -29,13 +29,12 @@ suffix-array sweeps, the fast-stream engine's probes).
 hand-written CUDA kernels of csrc/commit.cu (ops/commit_cuda.py:
 KERNEL_LAUNCHES = 3 launches, the call counted once in
 commit_with_positions.launches) for CUDA tensors; never a fallback from
-one to the other.  The kernels walk each tile of positions on its own,
-by pointer doubling in shared memory, with one integer carried from tile
-to tile, and always reach the fixed point: max_chain bounds the plain
-version's doubling rounds and does not reach them.  So the kernels equal
-the plain version whenever max_chain is at least the longest unit, which
-every caller passes; below that the plain version stops short of the
-fixed point and the kernels do not.
+one to the other.  Both walk to the fixed point, as the JAX package's
+while_loop does: the plain version stops on the first round that marks
+nothing new, and the kernels walk each tile of positions on its own, by
+pointer doubling in shared memory until a round adds nothing, with one
+integer carried from tile to tile.  So the kernels equal the plain
+version on every input, and no caller passes a bound on the walk.
 """
 
 from __future__ import annotations
@@ -45,19 +44,10 @@ import torch
 from . import commit_cuda
 
 
-def doubling_rounds(max_chain: int) -> int:
-    """Pointer-doubling rounds that reach every position of a chain of
-    `max_chain` positions from its first: after k rounds the visited set
-    holds F^j(seed) for every j < 2^k, and a chain's last position is
-    F^(max_chain - 1)(seed)."""
-    return max(0, int(max_chain) - 1).bit_length()
-
-
-def commit(best_id, best_len, feats, n_valid: int, *, unk_id: int, max_chain: int):
+def commit(best_id, best_len, feats, n_valid: int, *, unk_id: int):
     """Returns (ids int32[n] padded with -2 beyond count, count int32)."""
-    ids, _positions, count = commit_with_positions(
-        best_id, best_len, feats, n_valid, unk_id=unk_id, max_chain=max_chain
-    )
+    ids, _positions, count = commit_with_positions(best_id, best_len, feats, n_valid,
+                                                   unk_id=unk_id)
     return ids, count
 
 
@@ -68,21 +58,10 @@ def commit_with_positions(
     n_valid: int,
     *,
     unk_id: int,
-    max_chain: int,
 ):
     """commit() plus the emitting POSITION of each compacted id (used to
     attribute ids back to deduped units; positions ascend).  Returns (ids
     int32[n], positions int32[n] padded with -1, count int32 0-d tensor).
-
-    max_chain bounds the positions of one unit (a maximal space-free run)
-    that the walk can visit: the longest unit the caller put in the batch,
-    or n.  The plain version fixes its round count from it on the host
-    (doubling_rounds), so no round waits for the device: every seed is a
-    unit start, the walk leaves a unit only for the next unit's start
-    (itself a seed) or the sentinel, and F strictly increases, so the
-    orbit of a seed inside its unit has at most max_chain positions.
-    Rounds past the fixed point mark nothing new.  The CUDA kernels run to
-    the fixed point and do not read it.
 
     The plain version for CPU tensors, the CUDA kernels for CUDA tensors
     (one call counted in commit_with_positions.launches)."""
@@ -92,8 +71,7 @@ def commit_with_positions(
         if t.device != dev:
             raise ValueError(f"best_id on {dev}, {name} on {t.device}")
     if dev.type == "cpu":
-        return commit_with_positions_plain(best_id, best_len, feats, int(n_valid),
-                                           unk_id=unk_id, max_chain=max_chain)
+        return commit_with_positions_plain(best_id, best_len, feats, int(n_valid), unk_id=unk_id)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = commit_cuda.launch(best_id, best_len, feats, int(n_valid), unk_id=int(unk_id))
@@ -111,10 +89,10 @@ def commit_with_positions_plain(
     n_valid: int,
     *,
     unk_id: int,
-    max_chain: int,
 ):
     """commit_with_positions in PyTorch ops: the CPU's version, and what
-    the kernels are held to on the card."""
+    the kernels are held to on the card.  Each round of the walk reads
+    one flag back to the host (one sync a round on a CUDA tensor)."""
     n = best_id.shape[0]
     dev = best_id.device
     pos = torch.arange(n, dtype=torch.int32, device=dev)
@@ -131,21 +109,26 @@ def commit_with_positions_plain(
     # Seeds: every unit start.  The walk provably visits every unit start
     # (it only ever crosses into a later unit at that unit's first
     # non-space position), so seeding all of them is exact and bounds the
-    # doubling depth by the longest within-unit chain.
+    # doubling depth by log2 of the longest within-unit chain.
     prev_space = torch.cat([feats.space.new_ones(1), feats.space[:-1]])
     visited = ~feats.space & prev_space & (pos < n_valid)
 
     jump = step  # int32[n], values in [0, n]
     sentinel = jump.new_full((1,), n)
-    for _ in range(doubling_rounds(max_chain)):
+    commit_with_positions_plain.rounds = 0
+    changed = True
+    while changed:  # the JAX package's cond_fn / round_fn
         # Buffer of n + 1: unvisited positions scatter into the dropped
         # slot n.  amax makes duplicate targets well defined.
         scat = torch.zeros(n + 1, dtype=torch.int32, device=dev)
         scat.scatter_reduce_(
             0, torch.where(visited, jump, n).long(), visited.to(torch.int32), reduce="amax"
         )
-        visited = visited | (scat[:n] > 0)
+        new_visited = visited | (scat[:n] > 0)
+        changed = bool((new_visited != visited).any())
+        visited = new_visited
         jump = torch.cat([jump, sentinel])[jump.long()]
+        commit_with_positions_plain.rounds += 1
 
     # Segments: visited word-prefix positions start segments.
     seg_start = visited & feats.wp
@@ -173,3 +156,6 @@ def commit_with_positions_plain(
     positions = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
     positions.scatter_(0, scatter_to, pos)
     return ids[:n], positions[:n], count
+
+
+commit_with_positions_plain.rounds = 0  # rounds of the last call's walk

@@ -8,10 +8,10 @@ csrc/scan.cuh, visited and failed bits out), the emit (each segment's
 kill from the bits and the neighbouring tiles' bytes, then a forward scan
 with decoupled look-back for the slots and the compacted writes) and the
 fill of the tail: KERNEL_LAUNCHES kernels a call, run to the fixed point
-whatever the longest unit (max_chain does not reach them).  They are
-compiled with nvcc for sm_90a into a library with a plain C interface at
-first use (ops/cuda_build.py) and loaded with ctypes; nothing is compiled
-at module import.  The public entry point is
+whatever the longest unit, as the plain version and the JAX package do.
+They are compiled with nvcc for sm_90a into a library with a plain C
+interface at first use (ops/cuda_build.py) and loaded with ctypes;
+nothing is compiled at module import.  The public entry point is
 ops/commit.commit_with_positions, which calls `launch` for CUDA tensors
 and counts its calls.
 """

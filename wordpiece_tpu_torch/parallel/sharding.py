@@ -35,7 +35,6 @@ import torch.distributed as dist
 from ..core import unicode as uni
 from ..core.vocab import build_index
 from ..engine import encode_padded, index_statics
-from ..engine_linear import _longest_unit
 from ..engine_word import resolve_device
 from ..ops import match_fast
 from .vocab_parallel import combine_partial_matches
@@ -193,17 +192,16 @@ def encode_data_parallel(
     mult1: int,
     mult2: int,
     unk_id: int,
-    max_chain: int,
 ):
     """Sharded encode, called by every rank of the grid: this rank encodes
     shard mesh.d.  Returns (ids [D, largest count], counts [D], total) on
     this rank's device; the counts are summed with all_reduce(SUM) over the
-    data group (the psum of the JAX version).  max_chain: the longest unit
-    of the whole text (ops.commit.commit)."""
+    data group (the psum of the JAX version).  Each rank's commit walks its
+    own shard to the fixed point before any collective."""
     row, n_valid = _own_row(cp_shards, lengths, mesh, table.device)
     ids, count = encode_padded(
         row, n_valid, table, max_len=max_len, max_probe=max_probe, log2_size=log2_size,
-        mult1=mult1, mult2=mult2, unk_id=unk_id, max_chain=max_chain,
+        mult1=mult1, mult2=mult2, unk_id=unk_id,
     )
     return _gather_shards(ids, count, mesh)
 
@@ -220,7 +218,6 @@ def encode_2d_parallel(
     mult1: int,
     mult2: int,
     unk_id: int,
-    max_chain: int,
 ):
     """(data, vocab) grid: the corpus data-parallel, the probe table
     vocab-parallel (parallel/vocab_parallel.py).  Rank (d, v) matches shard
@@ -230,7 +227,7 @@ def encode_2d_parallel(
     row, n_valid = _own_row(cp_shards, lengths, mesh, table.device)
     ids, count = encode_padded(
         row, n_valid, table, max_len=max_len, max_probe=max_probe, log2_size=log2_size,
-        mult1=mult1, mult2=mult2, unk_id=unk_id, max_chain=max_chain,
+        mult1=mult1, mult2=mult2, unk_id=unk_id,
         combine=partial(combine_partial_matches, group=mesh.vocab_group),
     )
     return _gather_shards(ids, count, mesh)
@@ -265,6 +262,5 @@ class ShardedFastEncoder:
         shards, lens = shard_codepoints(cps, self.mesh.n_data)
         ids, counts, _total = encode_data_parallel(
             pad_shards(shards, self._statics["max_len"]), lens, self.table, mesh=self.mesh,
-            **self._statics, max_chain=_longest_unit(cps),
-        )
+            **self._statics)
         return assemble_ids(ids.cpu().numpy(), counts.cpu().numpy())
