@@ -1,0 +1,8 @@
+"""`host_worker_wait_ms_per_MB`, read the same way, in the cells where it moves
+`device_memory_peak_MB` rather than `encode_MBps` (PERF.md §3)."""
+
+import os
+
+from wpbench.cell import reader_at
+
+read = reader_at(os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_worker_wait_ms_per_MB.py"))

@@ -43,9 +43,8 @@ JAX package.  Phases, each fatal on failure:
     versions, torch.masked_select (the one PyTorch call that computes the
     compaction) and each kernel's bound; the profile of one en dispatch
     must show the two word kernels and nothing else (no scan launch
-    between them); the 10 MB en encode rate (min and
-    median of 5) with its stage breakdown, and one more such encode under
-    torch.profiler: device time per kernel and the card's busy share of
+    between them); the 10 MB en encode once more, its ids held to the
+    oracle, and one more such encode under torch.profiler: device time per kernel and the card's busy share of
     the wall time (--trace PATH also writes its trace);
  6. linear main path: the word kernels' counts are set to 0, then the
     linear engine encodes the same 10 MB en/ru/ja/zh corpora through
@@ -60,8 +59,8 @@ JAX package.  Phases, each fatal on failure:
     each against the oracle; the features, match and commit kernels must
     have been called once per device batch, the word kernels and the probe
     not at all;
- 7. linear numbers: the 10 MB en rate (min and median of 5) with its
-    stage breakdown; one encode under torch.profiler (device time by op
+ 7. linear numbers: the 10 MB en encode once more, its ids held to the
+    oracle; one encode under torch.profiler (device time by op
     class, launches per batch, busy share), which must show the match
     kernels and no torch scan (cummax); and, at the en first batch's
     shapes, held to the oracle first, the device time of the whole batch
@@ -2141,7 +2140,6 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.ops.text_features import compute_features
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.runtime import loader
-    from wordpiece_tpu_torch.utils.profiling import StageStats
 
     if "jax" in sys.modules or "wordpiece_tpu" in sys.modules:
         raise RuntimeError("the port pulled in jax or the JAX package")
@@ -2450,25 +2448,11 @@ def main(argv=None) -> int:
                                for (u, w), c in zip(shapes, cps)],
                    "total": total, "cap": cap, **timing[lang]})
 
-    runs = []
-    for _ in range(5):
-        enc_en.stats = StageStats()
-        t0 = time.perf_counter()
-        got = enc_en.encode_bytes(en)
-        dt = time.perf_counter() - t0
-        runs.append((dt, enc_en.stats.report()))
-    if not np.array_equal(got, want_en):
-        raise AssertionError("timed en encode: ids differ from the native oracle")
-    best = min(runs, key=lambda r: r[0])
-    median_s = float(np.median([r[0] for r in runs]))
-    emit_json({"phase": "e2e", "corpus": "en_10MB", "vocab": "bert_28996", "card": card,
-               "seconds": [r[0] for r in runs], "best_s": best[0], "median_s": median_s,
-               "mb_per_s": len(en) / best[0] / 1e6, "median_mb_per_s": len(en) / median_s / 1e6,
-               "stages": best[1], "device_fallbacks": enc_en.device_fallbacks})
+    if not np.array_equal(enc_en.encode_bytes(en), want_en):
+        raise AssertionError("en encode after the kernel timings: ids differ from the native oracle")
 
     # Where the device time of one 10 MB en encode goes, and how much of
     # the encode's wall time the card is busy at all.
-    enc_en.stats = None
     wall, rows, busy_us = device_profile(lambda: enc_en.encode_bytes(en), trace_path)
     emit_json({"phase": "profile", "corpus": "en_10MB", "card": card, "wall_ms": wall * 1e3,
                "device_busy_ms": None if busy_us is None else busy_us / 1e3,
@@ -2615,21 +2599,8 @@ def main(argv=None) -> int:
 
     # ---- 7. linear numbers ----------------------------------------------------
     enc_lin = lin_enc["en"]
-    runs = []
-    for _ in range(5):
-        enc_lin.stats = StageStats()
-        t0 = time.perf_counter()
-        got = enc_lin.encode_bytes(en)
-        runs.append((time.perf_counter() - t0, enc_lin.stats.report()))
-    enc_lin.stats = None
-    if not np.array_equal(got, want_en):
-        raise AssertionError("timed linear en encode: ids differ from the native oracle")
-    best = min(runs, key=lambda r: r[0])
-    median_s = float(np.median([r[0] for r in runs]))
-    emit_json({"phase": "linear_e2e", "corpus": "en_10MB", "vocab": "bert_28996", "card": card,
-               "seconds": [r[0] for r in runs], "best_s": best[0], "median_s": median_s,
-               "mb_per_s": len(en) / best[0] / 1e6, "median_mb_per_s": len(en) / median_s / 1e6,
-               "stages": best[1]})
+    if not np.array_equal(enc_lin.encode_bytes(en), want_en):
+        raise AssertionError("linear en encode: ids differ from the native oracle")
 
     b0 = enc_lin.device_batches
     wall, rows, busy_us = device_profile(lambda: enc_lin.encode_bytes(en), None)

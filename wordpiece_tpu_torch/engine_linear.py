@@ -424,6 +424,10 @@ class LinearEncoder:
         device batches of about LINEAR_BATCH_TARGET codepoints, keeps at
         most PIPELINE_WINDOW of them in flight and fetches the oldest —
         segmentation, H2D, device work and D2H overlap."""
+        with self._stage("encode", len(data)):
+            return self._encode_bytes(data)
+
+    def _encode_bytes(self, data: bytes) -> np.ndarray:
         if not loader.available():  # pragma: no cover - native always in CI
             return self.encode_codepoints(np.asarray(uni.decode_utf8(data)))
         if len(data) == 0:
@@ -433,18 +437,22 @@ class LinearEncoder:
                 occ, ustart, ulen, ucplen = loader.segment_dedupe(data)
             if ustart.shape[0] == 0:
                 return np.zeros(0, dtype=np.int32)
+            if self.stats is not None:
+                self.stats.count("units_new", ustart.shape[0])
+                self.stats.count("units_host", ustart.shape[0])
             return self._encode_units_scalar(data, occ, ustart, ulen, ucplen)
 
-        n = len(data)
-        chunks = []
-        begin = 0
-        while begin < n:
-            end = min(n, begin + self.LINEAR_SEG_CHUNK)
-            if end < n:
-                cut = uni.find_space_cut(data, end)
-                end = cut if cut >= 0 else n
-            chunks.append(data[begin:end])
-            begin = end
+        with self._stage("host_split"):
+            n = len(data)
+            chunks = []
+            begin = 0
+            while begin < n:
+                end = min(n, begin + self.LINEAR_SEG_CHUNK)
+                if end < n:
+                    cut = uni.find_space_cut(data, end)
+                    end = cut if cut >= 0 else n
+                chunks.append(data[begin:end])
+                begin = end
 
         if self._executor is None:
             from concurrent.futures import ThreadPoolExecutor
@@ -468,40 +476,42 @@ class LinearEncoder:
             """Assemble <= target codepoints of pending units (earliest
             uids first — across pieces) into one device batch."""
             nonlocal pend_cps
-            parts: list[np.ndarray] = []
-            ucls: list[np.ndarray] = []
-            got = 0
-            for p in list(pieces):  # each piece once, oldest first
-                if got >= target:
-                    break
-                pb, ns, nl, ncl, cs, used = p
-                u1 = int(np.searchsorted(cs, cs[used] + (target - got), side="right")) - 1
-                u1 = min(max(u1, used + 1), ns.shape[0])
-                with self._stage("host_join"):
+            with self._stage("host_join"):
+                parts: list[np.ndarray] = []
+                ucls: list[np.ndarray] = []
+                got = 0
+                for p in list(pieces):  # each piece once, oldest first
+                    if got >= target:
+                        break
+                    pb, ns, nl, ncl, cs, used = p
+                    u1 = int(np.searchsorted(cs, cs[used] + (target - got), side="right")) - 1
+                    u1 = min(max(u1, used + 1), ns.shape[0])
                     parts.append(
                         loader.join_units_cps(pb, ns, nl, used, u1, int(cs[u1] - cs[used] - 1))
                     )
-                ucls.append(ncl[used:u1].astype(np.int64))
-                got += int(cs[u1] - cs[used])
-                p[5] = u1
-            while pieces and pieces[0][5] >= pieces[0][1].shape[0]:
-                pieces.popleft()  # consumed pieces are the oldest
-            pend_cps -= got
-            if not parts:
-                return
-            if len(parts) == 1:
-                cps = parts[0]
-            else:  # single space between pieces (units never touch)
-                sep = np.full(1, 32, dtype=parts[0].dtype)
-                joined: list[np.ndarray] = []
-                for i, part in enumerate(parts):
-                    if i:
-                        joined.append(sep)
-                    joined.append(part)
-                cps = np.concatenate(joined)
-            ucl_b = np.concatenate(ucls)
-            cstart = np.zeros(ucl_b.shape[0] + 1, dtype=np.int64)
-            np.cumsum(ucl_b + 1, out=cstart[1:])
+                    ucls.append(ncl[used:u1].astype(np.int64))
+                    got += int(cs[u1] - cs[used])
+                    p[5] = u1
+                while pieces and pieces[0][5] >= pieces[0][1].shape[0]:
+                    pieces.popleft()  # consumed pieces are the oldest
+                pend_cps -= got
+                if not parts:
+                    return
+                if len(parts) == 1:
+                    cps = parts[0]
+                else:  # single space between pieces (units never touch)
+                    sep = np.full(1, 32, dtype=parts[0].dtype)
+                    joined: list[np.ndarray] = []
+                    for i, part in enumerate(parts):
+                        if i:
+                            joined.append(sep)
+                        joined.append(part)
+                    cps = np.concatenate(joined)
+                ucl_b = np.concatenate(ucls)
+                cstart = np.zeros(ucl_b.shape[0] + 1, dtype=np.int64)
+                np.cumsum(ucl_b + 1, out=cstart[1:])
+            if self.stats is not None:
+                self.stats.count("units_card", ucl_b.shape[0])
             if len(window) >= self.PIPELINE_WINDOW:
                 finish_one()
             with self._stage("device_dispatch"):
@@ -512,11 +522,12 @@ class LinearEncoder:
             handle, cstart = window.popleft()
             with self._stage("device_fetch"):
                 ids, positions = self._fetch_batch(handle)
-            # Attribute each emitted id to its unit (positions ascend).
-            unit_of = np.searchsorted(cstart[:-1], positions, side="right") - 1
-            batch_counts.append(
-                np.bincount(unit_of, minlength=cstart.shape[0] - 1).astype(np.int64)
-            )
+            with self._stage("host_stitch"):
+                # Attribute each emitted id to its unit (positions ascend).
+                unit_of = np.searchsorted(cstart[:-1], positions, side="right") - 1
+                batch_counts.append(
+                    np.bincount(unit_of, minlength=cstart.shape[0] - 1).astype(np.int64)
+                )
             flats.append(np.asarray(ids, dtype=np.int32))
 
         def seg_chunk(chunk: bytes):
@@ -527,9 +538,12 @@ class LinearEncoder:
         try:
             seg_futs = [self._executor.submit(seg_chunk, c) for c in chunks]
             for fut, chunk in zip(seg_futs, chunks):
-                occ_k, ns, nl, ncl = fut.result()
+                with self._stage("wait_worker"):
+                    occ_k, ns, nl, ncl = fut.result()
                 if occ_k.shape[0]:
                     occ_parts.append(occ_k)
+                if self.stats is not None:
+                    self.stats.count("units_new", ns.shape[0])
                 if ns.shape[0]:
                     cs = np.zeros(ns.shape[0] + 1, dtype=np.int64)
                     np.cumsum(ncl.astype(np.int64) + 1, out=cs[1:])
@@ -552,11 +566,12 @@ class LinearEncoder:
 
         if not occ_parts:
             return np.zeros(0, dtype=np.int32)
-        occ = occ_parts[0] if len(occ_parts) == 1 else np.concatenate(occ_parts)
-        counts_u = np.concatenate(batch_counts) if batch_counts else np.zeros(0, np.int64)
-        offsets = np.zeros(counts_u.shape[0] + 1, dtype=np.int64)
-        np.cumsum(counts_u, out=offsets[1:])
-        tok_flat = np.concatenate(flats) if flats else np.zeros(0, np.int32)
+        with self._stage("host_concat"):
+            occ = occ_parts[0] if len(occ_parts) == 1 else np.concatenate(occ_parts)
+            counts_u = np.concatenate(batch_counts) if batch_counts else np.zeros(0, np.int64)
+            offsets = np.zeros(counts_u.shape[0] + 1, dtype=np.int64)
+            np.cumsum(counts_u, out=offsets[1:])
+            tok_flat = np.concatenate(flats) if flats else np.zeros(0, np.int32)
         with self._stage("host_expand"):
             out = loader.expand(occ, tok_flat, offsets)
         return out if out is not None else np.zeros(0, np.int32)
@@ -580,25 +595,29 @@ class LinearEncoder:
         if handle[0] == "full":  # doubling fallback: device triple
             _, ids, positions, count = handle
             with self._on_stream():
-                count = int(count)
-                return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
+                with self._stage("device_wait"):
+                    count = int(count)
+                with self._stage("fetch_unpack"):
+                    return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
         _, host, event, cap, n, ids, positions, _keep = handle
-        if event is not None:
-            event.synchronize()
-        f = host.numpy()
-        count = int(f[0])
-        # Adapt the cap ratio toward the observed density (+15% headroom).
-        if n:
-            ratio = min(1.0, count / n * 1.15)
-            if ratio > self._cap_ratio:
-                self._cap_ratio = ratio
-        if count <= cap:
-            return f[1 : 1 + count].copy(), f[1 + cap : 1 + cap + count].copy()
-        # Capacity overflow (id stream denser than cap): copy the full ids
-        # and positions, which the handle kept on the device.
-        self.full_fetches += 1
-        with self._on_stream():
-            return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
+        with self._stage("device_wait"):
+            if event is not None:
+                event.synchronize()
+        with self._stage("fetch_unpack"):
+            f = host.numpy()
+            count = int(f[0])
+            # Adapt the cap ratio toward the observed density (+15% headroom).
+            if n:
+                ratio = min(1.0, count / n * 1.15)
+                if ratio > self._cap_ratio:
+                    self._cap_ratio = ratio
+            if count <= cap:
+                return f[1 : 1 + count].copy(), f[1 + cap : 1 + cap + count].copy()
+            # Capacity overflow (id stream denser than cap): copy the full
+            # ids and positions, which the handle kept on the device.
+            self.full_fetches += 1
+            with self._on_stream():
+                return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
 
     def _encode_units_scalar(self, data, occ, ustart, ulen, ucplen) -> np.ndarray:
         """Long-token vocab route: native scalar encode of each unique

@@ -295,12 +295,14 @@ class WordEncoder:
         if handle[0] == "sync":
             return handle[1]
         _, host, event, emits, nonempty, shapes, n_mats, cap, _keep = handle
-        if event is not None:
-            event.synchronize()
-        got = wk.decode_compact(host.numpy(), shapes, cap)
-        if got is None:  # >2 ids/unit on average (UNK-heavy / char vocabs)
-            self.full_fetches += 1
-            got = self._fetch_full(emits)
+        with self._stage("device_wait"):
+            if event is not None:
+                event.synchronize()
+        with self._stage("fetch_unpack"):
+            got = wk.decode_compact(host.numpy(), shapes, cap)
+            if got is None:  # >2 ids/unit on average (UNK-heavy / char vocabs)
+                self.full_fetches += 1
+                got = self._fetch_full(emits)
         out: list[np.ndarray | None] = [None] * n_mats
         for b, emit in zip(nonempty, got):
             out[b] = emit
@@ -399,10 +401,29 @@ class WordEncoder:
         st = self.stats
         return st.stage(name, nbytes) if st is not None else contextlib.nullcontext()
 
+    def _wait_worker(self, fut):
+        """A chunk's prepared state from the pipeline worker.  No local of
+        the caller holds it: a chunk's device buffers must be freed before
+        the wait on the next chunk, whose dispatch allocates its own."""
+        with self._stage("wait_worker"):
+            return fut.result()
+
+    def _count_units(self, n_new: int, n_card: int) -> None:
+        """Route counters (call with stats attached): first-seen units,
+        those in a bucket matrix for the card, and the rest, which the
+        host encodes."""
+        self.stats.count("units_new", n_new)
+        self.stats.count("units_card", n_card)
+        self.stats.count("units_host", n_new - n_card)
+
     def encode_bytes(self, data: bytes, *, n_chunks: int | None = None) -> np.ndarray:
         """Encode a byte corpus.  `n_chunks` forces the pipeline to split
         into EXACTLY that many chunks (trailing chunks may be empty) —
         the multi-process lockstep contract (see lockstep_dispatch)."""
+        with self._stage("encode", len(data)):
+            return self._encode_bytes(data, n_chunks)
+
+    def _encode_bytes(self, data: bytes, n_chunks: int | None) -> np.ndarray:
         if len(data) == 0 and not (self.lockstep_dispatch and n_chunks):
             return np.zeros(0, dtype=np.int32)
         if self.cache:
@@ -427,31 +448,32 @@ class WordEncoder:
             # U+2581-separated corpora must pipeline too).
             from .core.unicode import find_space_cut
 
-            chunks = []
-            begin = 0
-            n = len(data)
-            if n_chunks is not None:
-                # Exactly n_chunks chunks (lockstep); tail may be empty.
-                target = max(1, -(-n // n_chunks))
-                for ci in range(n_chunks):
-                    if ci == n_chunks - 1:
-                        end = n
-                    else:
-                        end = min(n, begin + target)
+            with self._stage("host_split"):
+                chunks = []
+                begin = 0
+                n = len(data)
+                if n_chunks is not None:
+                    # Exactly n_chunks chunks (lockstep); tail may be empty.
+                    target = max(1, -(-n // n_chunks))
+                    for ci in range(n_chunks):
+                        if ci == n_chunks - 1:
+                            end = n
+                        else:
+                            end = min(n, begin + target)
+                            if end < n:
+                                cut = find_space_cut(data, end)
+                                end = cut if cut >= 0 else n
+                        chunks.append(data[begin:end])
+                        begin = end
+                else:
+                    while begin < n:
+                        step = self.PIPELINE_FIRST if begin == 0 else self.PIPELINE_CHUNK
+                        end = min(n, begin + step)
                         if end < n:
                             cut = find_space_cut(data, end)
                             end = cut if cut >= 0 else n
-                    chunks.append(data[begin:end])
-                    begin = end
-            else:
-                while begin < n:
-                    step = self.PIPELINE_FIRST if begin == 0 else self.PIPELINE_CHUNK
-                    end = min(n, begin + step)
-                    if end < n:
-                        cut = find_space_cut(data, end)
-                        end = cut if cut >= 0 else n
-                    chunks.append(data[begin:end])
-                    begin = end
+                        chunks.append(data[begin:end])
+                        begin = end
             if self._executor is None:
                 from concurrent.futures import ThreadPoolExecutor
 
@@ -472,10 +494,10 @@ class WordEncoder:
                     )
                     if len(window) >= self.PIPELINE_WINDOW:
                         c, f = window.popleft()
-                        outs.append(self._finish_chunk(c, f.result(), store))
+                        outs.append(self._finish_chunk(c, self._wait_worker(f), store))
                 while window:
                     c, f = window.popleft()
-                    outs.append(self._finish_chunk(c, f.result(), store))
+                    outs.append(self._finish_chunk(c, self._wait_worker(f), store))
             finally:
                 # Drain in-flight prepares before the session dies.
                 for _, f in window:
@@ -483,8 +505,9 @@ class WordEncoder:
                         f.result()
                     except Exception:
                         pass
-            outs = [o for o in outs if o.size]
-            return np.concatenate(outs) if outs else np.zeros(0, np.int32)
+            with self._stage("host_concat"):
+                outs = [o for o in outs if o.size]
+                return np.concatenate(outs) if outs else np.zeros(0, np.int32)
         finally:
             if not self.cache:
                 session.close()
@@ -540,6 +563,8 @@ class WordEncoder:
                 flat, counts = self._scalar.encode_units(
                     data, nstart, nlen, int(ncplen.sum())
                 )
+            if self.stats is not None:
+                self._count_units(nstart.shape[0], 0)
             return (occ, nstart, nlen, None, None, None, ("scalar", flat, counts), None)
         if (
             not first
@@ -550,6 +575,8 @@ class WordEncoder:
                 flat, counts = self._scalar.encode_units(
                     data, nstart, nlen, int(ncplen.sum())
                 )
+            if self.stats is not None:
+                self._count_units(nstart.shape[0], 0)
             return (occ, nstart, nlen, None, None, None, ("scalar", flat, counts), None)
         # Split tiny units (see SCALAR_SMALL_CPLEN) off to the host
         # oracle; the device sees only the multi-char units.
@@ -586,6 +613,8 @@ class WordEncoder:
                 row_of = np.zeros(nstart.shape[0], dtype=np.int32)
                 bucket_of[big_idx] = b_of
                 row_of[big_idx] = r_of
+        if self.stats is not None:
+            self._count_units(nstart.shape[0], sum(m.shape[0] for m in mats))
         with self._stage("device_dispatch"):
             handle = self._dispatch_buckets(mats)
         return (occ, nstart, nlen, mats, bucket_of, row_of, handle, small)
@@ -598,7 +627,8 @@ class WordEncoder:
         if nstart is not None:
             if isinstance(handle, tuple) and handle[0] == "scalar":  # host batch
                 _, flat, counts = handle
-                store.append(flat, counts.astype(np.int64))
+                with self._stage("host_stitch"):
+                    store.append(flat, counts.astype(np.int64))
             else:
                 self._stitch_new_units(
                     data, nstart, nlen, mats, bucket_of, row_of, handle, store,
@@ -647,6 +677,10 @@ class WordEncoder:
                     self._consec_rescues += 1
                     if self._consec_rescues >= self.DEVICE_DEAD_AFTER:
                         self._device_dead = True
+                    if self.stats is not None:  # the card's units move to the host
+                        n_card = sum(m.shape[0] for m in mats)
+                        self.stats.count("units_card", -n_card)
+                        self.stats.count("units_host", n_card)
                     with self._stage("host_scalar_units"):
                         flat, counts = self._scalar.encode_units(
                             data, nstart, nlen, int(nlen.sum())
@@ -660,10 +694,11 @@ class WordEncoder:
                 for b, mat in enumerate(mats):
                     if mat.shape[0]:
                         emits[b] = self._verify_emit(mat, emits[b])
-        order_flat, counts_u = self._emits_to_uid_flat(
-            data, nstart, nlen, mats, bucket_of, row_of, emits, small
-        )
-        store.append(order_flat, counts_u)
+        with self._stage("host_stitch"):
+            order_flat, counts_u = self._emits_to_uid_flat(
+                data, nstart, nlen, mats, bucket_of, row_of, emits, small
+            )
+            store.append(order_flat, counts_u)
 
     def _emits_to_uid_flat(
         self, data, nstart, nlen, mats, bucket_of, row_of, emits, small=None

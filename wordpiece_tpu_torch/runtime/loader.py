@@ -462,18 +462,12 @@ def expand(occ_unique, tok_flat, tok_offsets, *, slack: bool = False) -> np.ndar
     lib = _load()
     if lib is None:
         return None
-    import os as _os
-    import time as _time
-
-    _dbg = _os.environ.get("WORDPIECE_EXPAND_DEBUG")
-    _t0 = _time.perf_counter()
     occ = np.ascontiguousarray(occ_unique, np.int32)
     flat = np.ascontiguousarray(tok_flat, np.int32)
     offs = np.ascontiguousarray(tok_offsets, np.int64)
     if not slack:
         # wp_expand over-copies up to 2 ids per step: give 2 spare reads.
         flat = np.concatenate([flat, np.zeros(2, np.int32)])
-    _t1 = _time.perf_counter()
     total = int(
         lib.wp_expand_total(
             occ.ctypes.data_as(ctypes.c_void_p),
@@ -481,9 +475,7 @@ def expand(occ_unique, tok_flat, tok_offsets, *, slack: bool = False) -> np.ndar
             offs.ctypes.data_as(ctypes.c_void_p),
         )
     )
-    _t2 = _time.perf_counter()
     out = np.empty(total + 2, dtype=np.int32)  # 2 spare write slots
-    _t3 = _time.perf_counter()
     n = lib.wp_expand_mt(
         occ.ctypes.data_as(ctypes.c_void_p),
         occ.shape[0],
@@ -492,16 +484,6 @@ def expand(occ_unique, tok_flat, tok_offsets, *, slack: bool = False) -> np.ndar
         out.ctypes.data_as(ctypes.c_void_p),
         np.int32(n_threads()),
     )
-    _t4 = _time.perf_counter()
-    if _dbg:
-        import sys as _sys
-
-        print(
-            f"# expand dbg: prep={1e3*(_t1-_t0):.1f} total={1e3*(_t2-_t1):.1f} "
-            f"alloc={1e3*(_t3-_t2):.1f} mt={1e3*(_t4-_t3):.1f} ms "
-            f"(n_occ={occ.shape[0]}, out={total})",
-            file=_sys.stderr, flush=True,
-        )
     assert n == total
     return out[:n]
 
