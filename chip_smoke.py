@@ -56,9 +56,10 @@ JAX package.  Phases, each fatal on failure:
     (compact-cap overflow: full_fetches > 0), the prefix-doubling fallback
     (a 5,000-symbol vocab with 49-90-codepoint tokens: nk > 24) and the
     MAX_SLOT_LEN scalar route (a 100-codepoint token: no device batch),
-    each against the oracle; the features, match and commit kernels must
-    have been called once per device batch, the word kernels and the probe
-    not at all;
+    each against the oracle; the features, match and commit wrappers must
+    have been called once per device batch run by launches (device_batches
+    less graph_replays: a replay calls no wrapper), the word kernels and
+    the probe not at all;
  7. linear numbers: the 10 MB en encode once more, its ids held to the
     oracle; one encode under torch.profiler (device time by op
     class, launches per batch, busy share), which must show the match
@@ -81,6 +82,25 @@ JAX package.  Phases, each fatal on failure:
     version's time and its kernels' device time from a profile; with
     --compare DIR, the kernels of the checkout at DIR timed beside these in
     turns on those two inputs;
+7b. linear graphs: on a card LinearEncoder replays one CUDA graph a shape
+    key (bucket, cap, input dtypes) for each batch.  A fresh encoder
+    encodes 10 MB en with StageStats attached (ids equal to the oracle,
+    batches_graph > 0, batches_graph + batches_eager = device_batches, one
+    capture a key, each kernel wrapper's .launches, set to 0 before, equal
+    to batches_eager: a capture counts none); then each of its batches again, all replays, each
+    equal, ids and positions, to _linear_batch_compact by launches at its
+    true length and to the oracle; a text above U+FFFF through
+    encode_codepoints three times (an int32 codepoint key, replays equal
+    to the oracle); the char-level vocab on 1 MB with the cap ratio forced
+    below its density once the small caps' graphs exist (replays
+    overflow, re-run by launches: full_fetches, equal to the oracle); a
+    fresh encoder's two 2 MB encodes under torch.profiler, the first
+    capturing inside the profile, the second replaying, both equal to the
+    oracle, each batch running the features, match and commit kernels once
+    each in the profile, read by kernel name, and the wrappers counting
+    the batches run by launches alone; and the host's enqueue of the
+    en first batch (the median of 25, the card idle before each), by a
+    graph's replay and by stream launches, in turns;
  8. stream kernel vs plain: on the card, the probe kernel
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
@@ -200,8 +220,9 @@ JAX package.  Phases, each fatal on failure:
     verify_repairs and device_fallbacks 0, the linear encoders with
     device_batches > 0; the word kernel and the compaction must have
     launched alike, the probe once a fast-stream encode, the linear match
-    once a linear device batch, the features and commit kernels once for
-    each of both, the split kernels not at all.  The kernels line gives
+    once a linear device batch run by launches (not a graph's replay), the
+    features and commit kernels once for each of both, the split kernels
+    not at all.  The kernels line gives
     each kernel's launches in this run as `harness_launches`;
 15. stress: the reference's differential stress configurations
     (bench/stress_cases.py, the JAX package's reference-scale stress test's
@@ -218,15 +239,19 @@ JAX package.  Phases, each fatal on failure:
     min(30,000, len // 10) parts) through fast and fast-stream.  Each row
     gives the ids, the seconds of the encode, the route counts (fast:
     dispatches, overflow units and units encoded on the host; linear:
-    device batches and scalar-route units), the launches and, for fast,
+    device batches, scalar-route units, the graph counters and, the linear
+    encode run under torch.profiler, each hand kernel's runs by kernel
+    name), the launches and, for fast,
     verify_repairs and device_fallbacks, which must be 0.  On the texts of
     one unit the features and commit kernels are also held to their plain
     versions (as in 8b) on the probe kernel's matches: the longest chain
     the commit's walk can be given.  Fast-stream must launch the
     features, probe and commit kernels once an encode, the word kernel and
-    the compaction launch alike, the linear match, features and commit
-    kernels once a device batch.  The kernels line
-    gives each kernel's launches in this phase as `stress_launches`.
+    the compaction launch alike; every linear batch must be a graph's
+    replay or run by launches, run the features, match and commit kernels
+    once each in the profile, and the wrappers count one call each a
+    batch run by launches.  The kernels line gives each kernel's wrapper
+    calls in this phase as `stress_launches`.
 
 Prints JSON lines, then the kernels line, then the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
@@ -717,6 +742,214 @@ def linear_match_compare(other_root: str, card: str, inputs: dict) -> dict:
 
 # ---- phases 8-10: the fast-stream engine ------------------------------------
 ASTRAL_TOKENS = ["𠀀", "𠀁", "##𠀁", "𠀀the", "##𠀂"]
+
+
+def graph_counts(enc) -> dict:
+    """The linear encoder's graph counters, from its StageStats."""
+    c = enc.stats.report()["counters"]
+    return {k: c.get(k, 0) for k in ("batches_graph", "batches_eager", "graph_captures")}
+
+
+# A kernel that each hand-kernel wrapper of the linear batch launches once
+# a call: a profile counts the batches that ran it, by a graph's replay or
+# by a launch, where the wrappers' .launches count only their own calls.
+LINEAR_HAND_KERNELS = {"compute_features": "text_features_kernel",
+                       "match_from_sa": "sa_match_walk_kernel",
+                       "commit_with_positions": "commit_walk_kernel"}
+
+
+def hand_kernel_runs(rows) -> dict:
+    """Runs of the linear batch's hand kernels in device_profile's rows,
+    by wrapper name."""
+    return {w: sum(c for n, c, _ in rows if k in n) for w, k in LINEAR_HAND_KERNELS.items()}
+
+
+def wrapper_launches() -> dict:
+    """The linear batch's kernel wrappers' .launches, by name."""
+    from wordpiece_tpu_torch.dryrun import KERNELS
+
+    return {w: KERNELS[w].launches for w in LINEAR_HAND_KERNELS}
+
+
+def zero_launches() -> None:
+    from wordpiece_tpu_torch.dryrun import KERNELS
+
+    for c in KERNELS.values():
+        c.launches = 0
+
+
+def linear_graph_phase(card: str, data: bytes, lines: list, want, char_vocab) -> dict:
+    """Phase 7b (module docstring): LinearEncoder's CUDA graphs against
+    launches and the native oracle, on `data` with the vocab of `lines`
+    (`want` its oracle ids); the enqueue of a batch both ways."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+    from wordpiece_tpu_torch.engine_linear import LinearEncoder, _linear_batch_compact
+    from wordpiece_tpu_torch.runtime import loader
+    from wordpiece_tpu_torch.utils.profiling import StageStats
+
+    def fresh(v):
+        enc = LinearEncoder(v, device="cuda")
+        enc.stats = StageStats()
+        return enc
+
+    def on_card(a):
+        return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).cuda()
+
+    # The 10 MB en encode, each batch's codepoints kept.
+    vocab = parse_vocab(lines)
+    enc = fresh(vocab)
+    batches = []
+    orig = enc._encode_batch
+
+    def record(cps, as_handle=False):
+        batches.append(cps.copy())
+        return orig(cps, as_handle)
+
+    enc._encode_batch = record
+    zero_launches()
+    got = enc.encode_bytes(data)
+    del enc._encode_batch
+    first = graph_counts(enc)
+    calls = wrapper_launches()
+    ok = (np.array_equal(got, want) and first["batches_graph"] > 0
+          and first["batches_graph"] + first["batches_eager"] == enc.device_batches
+          and first["graph_captures"] == len(enc._graphs)
+          and all(v == first["batches_eager"] for v in calls.values()))
+    # Every batch again, now all replays, each held id for id and position
+    # for position to the batch program by launches at its true length,
+    # and to the oracle.
+    m = enc._merge
+    tabs = (m.tok_keys, m.tok_len, m.tok_id, m.tok_kind)
+    statics = dict(bits=m.bits, per=m.per, nk=m.nk, max_len=enc.max_len, unk_id=enc._unk_id)
+    oracle = loader.VocabHandle(vocab)
+    g0, wrong = graph_counts(enc)["batches_graph"], 0
+    for cps in batches:
+        ids_g, pos_g = enc._fetch_batch(enc._encode_batch(cps, as_handle=True))
+        x, c, cap = enc.batch_inputs(cps)
+        fused, ids_e, pos_e = _linear_batch_compact(on_card(x), on_card(c), int(cps.shape[0]),
+                                                    *tabs, **statics, cap=cap)
+        k = int(fused[0])
+        wrong += not (k == ids_g.shape[0] and np.array_equal(ids_g, ids_e[:k].cpu().numpy())
+                      and np.array_equal(pos_g, pos_e[:k].cpu().numpy())
+                      and np.array_equal(ids_g, oracle.encode(cps)))
+    replays = graph_counts(enc)["batches_graph"] - g0
+    row = {"phase": "linear_graph", "corpus": "en_10MB", "ids": int(got.shape[0]),
+           "equal_native_oracle": bool(np.array_equal(got, want)), **first,
+           "wrapper_launches": calls,
+           "device_batches": enc.device_batches - len(batches), "graphs": len(enc._graphs),
+           "keys": sorted(map(list, enc._graphs)), "batches_again": len(batches),
+           "replayed_again": replays, "batches_not_equal_launches": wrong}
+    emit_json(row)
+    if not ok or wrong or replays != len(batches):
+        raise AssertionError(f"linear graphs on en 10 MB: {row}")
+
+    # A batch above U+FFFF: the codepoints travel as int32 (another key).
+    rng = np.random.default_rng(5)
+    words = data[:200_000].decode("utf-8", errors="ignore").split()
+    astral = ["\U00020000", "\U00020000\U00020001", "x\U00020001", "\U0001F600"]
+    text = " ".join(astral[int(rng.integers(4))] if rng.random() < 0.05 else w for w in words)
+    cps = loader.decode_utf8(text.encode()).astype(np.int32)
+    a_enc = fresh(parse_vocab(lines + ["\U00020000", "##\U00020001"]))
+    a_want = loader.VocabHandle(a_enc.vocab).encode(cps)
+    a_got = [a_enc.encode_codepoints(cps) for _ in range(3)]
+    a_counts = graph_counts(a_enc)
+    a_keys = sorted(map(list, a_enc._graphs))
+    a_ok = (int(cps.max()) > 0xFFFF and all(np.array_equal(g, a_want) for g in a_got)
+            and any(k[3] == "<i4" for k in a_keys) and a_counts["batches_graph"] > 0)
+    row = {"phase": "linear_graph_astral", "codepoints": int(cps.shape[0]),
+           "max_codepoint": int(cps.max()), "ids": int(a_want.shape[0]), "keys": a_keys,
+           "equal_native_oracle": bool(a_ok), **a_counts}
+    emit_json(row)
+    if not a_ok:
+        raise AssertionError(f"linear graphs above U+FFFF: {row}")
+
+    # A forced overflow on a replay: the char-level vocab, the cap ratio set
+    # below its density after the graphs of the small cap were captured.
+    head = data[: 1_000_000]
+    head = head[: head.rfind(b" ")]
+    c_want = loader.VocabHandle(char_vocab).encode(loader.decode_utf8(head))
+    o_enc = fresh(char_vocab)
+    o_enc._cap_ratio = 0.0001
+    o_enc.encode_bytes(head)
+    o_enc.stats.reset()
+    o_enc._cap_ratio = 0.0001
+    f0 = o_enc.full_fetches
+    o_got = o_enc.encode_bytes(head)
+    o_counts = graph_counts(o_enc)
+    reruns = o_enc.full_fetches - f0
+    o_ok = (np.array_equal(o_got, c_want) and reruns > 0 and o_counts["batches_graph"] > 0
+            and o_counts["batches_eager"] == reruns + o_counts["graph_captures"])
+    row = {"phase": "linear_graph_overflow", "corpus": "en_1MB", "vocab": f"char_{char_vocab.size}",
+           "ids": int(o_got.shape[0]), "equal_native_oracle": bool(np.array_equal(o_got, c_want)),
+           "reruns": reruns, **o_counts}
+    emit_json(row)
+    if not o_ok:
+        raise AssertionError(f"linear graph overflow: {row}")
+
+    # Captures under torch.profiler: a fresh encoder's first encode captures
+    # every key inside the profile, its second replays.  Each batch must
+    # run each hand kernel once in the trace, read by the kernel's name,
+    # and the wrappers must count the batches run by launches alone.
+    p_data = data[: data.find(b" ", 2_000_000)]
+    p_want = oracle.encode(loader.decode_utf8(p_data))
+    p_enc = fresh(vocab)
+    prof_rows = {}
+    for label in ("captures", "replays"):
+        b0, c0 = p_enc.device_batches, graph_counts(p_enc)
+        zero_launches()
+        out = {}
+        wall, rows, busy = device_profile(lambda: out.setdefault("ids", p_enc.encode_bytes(p_data)),
+                                          None)
+        c1 = graph_counts(p_enc)
+        prof_rows[label] = {"batches": p_enc.device_batches - b0,
+                            "kernel_runs": hand_kernel_runs(rows),
+                            "wrapper_launches": wrapper_launches(),
+                            "wall_ms": wall * 1e3,
+                            "device_busy_ms": None if busy is None else busy / 1e3,
+                            "equal_native_oracle": bool(np.array_equal(out["ids"], p_want)),
+                            **{k: c1[k] - c0[k] for k in c1}}
+    row = {"phase": "linear_graph_profile", "corpus": "en_2MB", **prof_rows}
+    emit_json(row)
+    if not all(r["equal_native_oracle"] and r["batches"] > 0
+               and all(v == r["batches"] for v in r["kernel_runs"].values())
+               and all(v == r["batches_eager"] for v in r["wrapper_launches"].values())
+               for r in prof_rows.values()) or \
+            prof_rows["captures"]["graph_captures"] < 1 or \
+            prof_rows["replays"]["batches_graph"] != prof_rows["replays"]["batches"]:
+        raise AssertionError(f"linear graphs under the profiler: {row}")
+
+    # The host's enqueue of one batch (the en first), the card idle before
+    # each: a graph's replay against the same program's launches.
+    cps = batches[0]
+    launches = LinearEncoder(vocab, device="cuda")
+    launches._graphs = None  # the stream-launch path
+    times = {}
+    for label, e in (("graph", enc), ("stream_launches", launches), ("graph_again", enc),
+                     ("stream_launches_again", launches)):
+        enq, tot = [], []
+        ids0 = None
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = e._encode_batch(cps, as_handle=True)
+            t1 = time.perf_counter()
+            ids, _ = e._fetch_batch(h)
+            t2 = time.perf_counter()
+            enq.append(t1 - t0)
+            tot.append(t2 - t0)
+            ids0 = ids if ids0 is None else ids0
+        times[label] = {"enqueue_ms": float(np.median(enq)) * 1e3,
+                        "enqueue_and_fetch_ms": float(np.median(tot)) * 1e3,
+                        "equal_native_oracle": bool(np.array_equal(ids0, oracle.encode(cps)))}
+    row = {"phase": "linear_graph_enqueue", "card": card, "n": int(cps.shape[0]),
+           "key": list(max(enc._graphs, key=lambda k: k[0])), "ms": times}
+    emit_json(row)
+    if not all(t["equal_native_oracle"] for t in times.values()):
+        raise AssertionError(f"linear graph enqueue: ids differ: {row}")
+    return row
 
 
 def stream_texts(words: list[str], rng) -> dict:
@@ -1888,6 +2121,7 @@ def harness_phase(card: str) -> dict:
     linears = [enc for _, enc in made if isinstance(enc, LinearEncoder)]
     stream_encodes = sum(e == "fast-stream" for e, _ in made) * (1 + HARNESS_ITERS)
     lin_batches = sum(enc.device_batches for enc in linears)
+    lin_launched = lin_batches - sum(enc.graph_replays for enc in linears)
     equal = {lang: len(set(s.values())) == 1 and
              len({counts[f"{lang}/{e}"] for e in HARNESS_ENGINES}) == 1
              for lang, s in streams.items()}
@@ -1901,6 +2135,7 @@ def harness_phase(card: str) -> dict:
                "verify_repairs": sum(enc.verify_repairs for enc in words),
                "device_fallbacks": sum(enc.device_fallbacks for enc in words),
                "linear_device_batches": [enc.device_batches for enc in linears],
+               "linear_graph_replays": [enc.graph_replays for enc in linears],
                "fast_stream_encodes": stream_encodes, "launches": launches,
                "wall_s": seconds})
     if rc != 0 or not all(equal.values()):
@@ -1919,11 +2154,12 @@ def harness_phase(card: str) -> dict:
                              f"launched: {launches}")
     if (launches["word_match_commit"] != launches["compact"]
             or launches["match_positions"] != stream_encodes
-            or launches["match_from_sa"] != lin_batches
-            or launches["compute_features"] != stream_encodes + lin_batches
-            or launches["commit_with_positions"] != stream_encodes + lin_batches):
+            or launches["match_from_sa"] != lin_launched
+            or launches["compute_features"] != stream_encodes + lin_launched
+            or launches["commit_with_positions"] != stream_encodes + lin_launched):
         raise AssertionError(f"harness: launches {launches} against {stream_encodes} "
-                             f"fast-stream encodes and {lin_batches} linear batches")
+                             f"fast-stream encodes and {lin_launched} linear batches run by "
+                             f"launches ({lin_batches} in all)")
     return launches
 
 
@@ -1998,6 +2234,7 @@ def stress_phase(card: str, cases=None, device="cuda") -> tuple:
     from wordpiece_tpu_torch.engine_linear import LinearEncoder
     from wordpiece_tpu_torch.engine_word import WIDTHS
     from wordpiece_tpu_torch.runtime import loader
+    from wordpiece_tpu_torch.utils.profiling import StageStats
 
     total = dict.fromkeys(KERNELS, 0)
     fc_err = 0
@@ -2020,15 +2257,26 @@ def stress_phase(card: str, cases=None, device="cuda") -> tuple:
                 scalar = None
                 if engine in ("fast", "linear"):
                     scalar = enc._scalar = CountingScalar(loader.VocabHandle(vocab))
+                if engine == "linear":
+                    enc.stats = StageStats()
                 for c in KERNELS.values():
                     c.launches = 0
                 if device != "cpu":
                     torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = api._encode_with(enc, data)
-                if device != "cpu":
-                    torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
+                ran = None
+                if engine == "linear" and device != "cpu":
+                    # A graph's replay launches the hand kernels without a
+                    # wrapper call: the profile counts their runs by name.
+                    out = {}
+                    seconds, rows, _ = device_profile(
+                        lambda: out.setdefault("ids", api._encode_with(enc, data)), None)
+                    got, ran = out["ids"], hand_kernel_runs(rows)
+                else:
+                    t0 = time.perf_counter()
+                    got = api._encode_with(enc, data)
+                    if device != "cpu":
+                        torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
                 launches = {k: c.launches for k, c in KERNELS.items()}
                 for k, v in launches.items():
                     total[k] += v
@@ -2049,7 +2297,8 @@ def stress_phase(card: str, cases=None, device="cuda") -> tuple:
                 elif engine == "linear":
                     row["routes"] = {"device_batches": enc.device_batches,
                                      "scalar_route_units": scalar.batched,
-                                     "full_fetches": enc.full_fetches}
+                                     "full_fetches": enc.full_fetches, **graph_counts(enc),
+                                     "kernel_runs": ran}
                 emit_json(row)
                 if not ok:
                     raise AssertionError(f"stress {name} {sign} {engine}: ids differ from the "
@@ -2083,10 +2332,15 @@ def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_l
         elif longest_unit <= widest:
             ok = ok and routes["dispatches"] > 0 and routes["overflow_units"] == 0
     elif engine == "linear":
+        # Each batch runs each hand kernel once (the profile's count by
+        # name); the wrappers count the batches run by launches.
         b = enc.device_batches
-        ok = (got["match_from_sa"] == got["compute_features"] == got["commit_with_positions"]
-              == b and not split and not got["word_match_commit"] and not got["compact"]
-              and not got["match_positions"])
+        routes = row["routes"]
+        ok = (all(got[w] == routes["batches_eager"] for w in LINEAR_HAND_KERNELS)
+              and all(v == b for v in routes["kernel_runs"].values())
+              and not split and not got["word_match_commit"] and not got["compact"]
+              and not got["match_positions"]
+              and routes["batches_graph"] + routes["batches_eager"] == b)
         if row["max_len"] > max_slot_len:  # the scalar route
             ok = ok and b == 0 and row["routes"]["scalar_route_units"] > 0
         else:
@@ -2500,7 +2754,7 @@ def main(argv=None) -> int:
         return enc
 
     lin_enc = {}
-    lin_batches = 0
+    lin_batches = lin_launched = 0  # batches; those run by launches, not replays
     for lang in ("en", "ru", "ja", "zh"):
         data, vocab, want = corpora[lang]
         # The namespace's own cached encoder: made here, so that the
@@ -2521,6 +2775,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"linear {lang}: the batch program did not run on the card")
         lin_enc[lang] = enc
         lin_batches += enc.device_batches
+        lin_launched += enc.device_batches - enc.graph_replays
 
     for name, corpus, lines, ref in goldens:
         enc = lin_recording(wpt.make_encoder(parse_vocab(lines), "linear", device="cuda"), None)
@@ -2531,6 +2786,7 @@ def main(argv=None) -> int:
         if not ok or enc.device_batches < 1:
             raise AssertionError(f"linear {name}: ids differ from the reference stream")
         lin_batches += enc.device_batches
+        lin_launched += enc.device_batches - enc.graph_replays
 
     # Overflow: the char-level vocabulary emits ~1 id per codepoint, past
     # the compact cap of the first batch.
@@ -2543,6 +2799,7 @@ def main(argv=None) -> int:
     if not ok or enc.full_fetches < 1:
         raise AssertionError(f"linear char vocab: ok={ok}, full_fetches={enc.full_fetches}")
     lin_batches += enc.device_batches
+    lin_launched += enc.device_batches - enc.graph_replays
 
     # The prefix-doubling fallback (nk > 24); the match's inputs of its
     # first batch are kept for phase 7 (the fallback reads the card back,
@@ -2572,6 +2829,7 @@ def main(argv=None) -> int:
     if not ok or enc.device_batches < 1:
         raise AssertionError("linear doubling fallback: ids differ from the native oracle")
     lin_batches += enc.device_batches
+    lin_launched += enc.device_batches - enc.graph_replays
 
     # The MAX_SLOT_LEN scalar route: one token longer than 96 codepoints.
     s_vocab = parse_vocab(bert_lines_en + ["q" * 100])
@@ -2589,13 +2847,15 @@ def main(argv=None) -> int:
                     "match_from_sa": match_from_sa.launches,
                     "commit_with_positions": commit_with_positions.launches}
     emit_json({"phase": "linear_main_path_batches", "device_batches": lin_batches,
+               "launched_batches": lin_launched,
                "word_kernel_launches": word_launches, "match_positions_launches": mp.launches,
                **lin_launches})
     if word_launches or mp.launches:
         raise AssertionError("the linear path launched the word engine's or the probe's kernels")
-    if set(lin_launches.values()) != {lin_batches}:
+    if set(lin_launches.values()) != {lin_launched}:
         raise AssertionError(f"not one features, match and commit call per linear device "
-                             f"batch: {lin_launches}, {lin_batches} batches")
+                             f"batch run by launches: {lin_launches}, {lin_launched} of "
+                             f"{lin_batches} batches")
 
     # ---- 7. linear numbers ----------------------------------------------------
     enc_lin = lin_enc["en"]
@@ -2736,6 +2996,9 @@ def main(argv=None) -> int:
                "ms": part_ms, "launches": part_launches,
                "batch_graph_nodes": launches_per_call(run_batch), "bytes": nbytes,
                "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}})
+
+    # ---- 7b. the linear engine's CUDA graphs -----------------------------------------
+    linear_graph_phase(card, en, bert_lines_en, want_en, char_vocab)
 
     # ---- 8-10. the fast-stream engine --------------------------------------------
     fc, stream_kernel = stream_phases(card, corpora, goldens, words, bert_lines_en,

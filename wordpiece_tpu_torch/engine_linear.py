@@ -12,7 +12,8 @@ Pipeline per batch (one asynchronous run of torch ops and kernels on the
 encoder's stream, one device-to-host copy of a compact vector; the
 features, csrc/text_features.cu, the match, csrc/linear_match.cu, and the
 commit, csrc/commit.cu, are the CUDA kernels on a card and their plain
-versions on the CPU):
+versions on the CPU; on a card the whole program is one CUDA graph a
+shape, replayed, see LinearEncoder._encode_batch):
   1. text suffixes' first-max_len symbols packed into nk int32 keys
      (dense per-VOCAB alphabet; text symbols foreign to the vocabulary
      collapse into one FOREIGN code — see correctness note below);
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from collections import deque
 
 import numpy as np
@@ -204,6 +206,43 @@ def _linear_batch_compact(*args, cap: int, **kwargs):
     return fused, ids, positions
 
 
+_TORCH_DTYPE = {np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32}
+
+
+def graph_key(x_dense: np.ndarray, cps_pad: np.ndarray, cap: int) -> tuple:
+    """What a batch's CUDA graph is captured for, read off the batch's host
+    inputs (LinearEncoder.batch_inputs): the padded length, the compact
+    vector's cap and the two transfer dtypes (cps_pad is int32 once the
+    batch holds a codepoint above U+FFFF).  The true length is no part of
+    it: the batch program runs at the padded length (_encode_batch)."""
+    return int(x_dense.shape[0]), int(cap), x_dense.dtype.str, cps_pad.dtype.str
+
+
+@dataclasses.dataclass
+class BatchGraph:
+    """One captured batch program: every replay reads the static inputs
+    and writes the static compact vector."""
+
+    graph: object  # torch.cuda.CUDAGraph
+    x_dense: torch.Tensor
+    cps_pad: torch.Tensor
+    fused: torch.Tensor
+
+
+def _capture(run, stream, pool):
+    """Capture run() on `stream` into a CUDA graph whose memory comes from
+    `pool`.  Returns (graph, run()'s outputs); the capture runs nothing,
+    graph.replay() launches the recorded work on the current stream."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = run()
+        finally:
+            graph.capture_end()
+    return graph, out
+
+
 def _bucket(n: int, floor: int = 128) -> int:
     """Shape buckets {2^k, 3·2^(k-1)}: device cost scales with n, so the
     extra half-step bucket saves up to 25% work vs pure pow2."""
@@ -331,7 +370,11 @@ class LinearEncoder:
         """device: "cuda" (default; raises if no GPU is present) or "cpu".
         Every batch's H2D copies, ops and D2H copy run on one stream owned
         by the encoder; device_batches counts the batch programs run and
-        full_fetches the compact-cap overflows (full ids copied back)."""
+        full_fetches the compact-cap overflows (full ids copied back).  On
+        a card the batch programs are CUDA graphs, one a graph_key,
+        captured on a stream of their own into one memory pool;
+        graph_replays counts the batches a replay ran (the kernel wrappers'
+        .launches count the others)."""
         self.device = resolve_device(device)
         self.vocab = vocab
         self.max_len = max(vocab.max_len, 1)
@@ -340,8 +383,18 @@ class LinearEncoder:
         self._eligible = vocab.active
         self._kind = np.where(self._eligible, vocab.is_prefix.astype(np.int32), -1)
         self._stream = None
+        self._graphs = None  # graph_key -> BatchGraph, on a card
+        self._capture_stream = self._graph_pool = None
+        self._free_slots: list = []  # pinned staging buffers (_staged)
+        # Held from a batch's staging to its D2H enqueued, and around the
+        # free slots: callers on several threads share the graphs' static
+        # buffers and the slots.
+        self._lock = threading.Lock()
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
+            self._graphs = {}
+            self._capture_stream = torch.cuda.Stream(device=self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
         self._merge = load_merge_tables(build_merge_tables(vocab, self.max_len), self.device)
         if self._stream is not None:
             # The tables were copied on the default stream.
@@ -349,6 +402,7 @@ class LinearEncoder:
         self._unk_id = int(vocab.unk_token_id)
         self._max_text_batch = None
         self.device_batches = 0
+        self.graph_replays = 0
         self.full_fetches = 0
         self.stats = None  # optional utils.profiling.StageStats
         self._executor = None  # lazy 1-thread pool for segmentation
@@ -357,25 +411,65 @@ class LinearEncoder:
         st = self.stats
         return st.stage(name, nbytes) if st is not None else contextlib.nullcontext()
 
+    def _count(self, name: str) -> None:
+        if self.stats is not None:
+            self.stats.count(name)
+
+    def _batch_ran(self, graph: bool = False) -> None:
+        """Count a batch program run; on a card also whether a graph's
+        replay ran it (batches_graph) or launches did (batches_eager)."""
+        self.device_batches += 1
+        self.graph_replays += graph
+        if self._graphs is not None:
+            self._count("batches_graph" if graph else "batches_eager")
+
     def _on_stream(self):
         if self._stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _to_device(self, arr: np.ndarray, keep: list) -> torch.Tensor:
-        """numpy -> device tensor (uint16 ships as int16 bits); on CUDA
-        through a pinned buffer, copied asynchronously on the current
-        stream.  The pinned buffer is appended to `keep` (held by the
-        batch's handle), so it is never reused while its batch is in
-        flight."""
-        if arr.dtype == np.uint16:
-            arr = arr.view(np.int16)
-        t = torch.from_numpy(arr)
+    def _staged(self, x_dense: np.ndarray, cps_pad: np.ndarray, out_len: int):
+        """The batch's host side: (slot, x, c, host), its inputs as host
+        tensors to copy from (uint16 as int16 bits) and the int32[out_len]
+        tensor its compact vector comes back into.  On a card all three
+        are views of `slot`, one pinned staging buffer, which is the
+        batch's until _fetch_batch hands it back, and numpy copies the
+        inputs in (a torch CPU copy_, as in pin_memory(), forks torch's
+        CPU thread pool: milliseconds a batch on a card's host).  On the
+        CPU slot is None and x and c share the arrays' memory."""
+        arrs = [a.view(np.int16) if a.dtype == np.uint16 else a for a in (x_dense, cps_pad)]
         if self._stream is None:
-            return t
-        pinned = t.pin_memory()
-        keep.append(pinned)
-        return pinned.to(self.device, non_blocking=True)
+            return None, *map(torch.from_numpy, arrs), torch.empty(out_len, dtype=torch.int32)
+        sizes = [a.nbytes for a in arrs] + [4 * out_len]
+        at = np.cumsum([0] + [-(-b // 16) * 16 for b in sizes]).tolist()  # 16-byte aligned
+        slot = self._slot(at[-1])
+        raw = slot.numpy()
+        for a, a0 in zip(arrs, at):
+            raw[a0 : a0 + a.nbytes].view(a.dtype)[:] = a
+        x, c = (slot[a0 : a0 + a.nbytes].view(_TORCH_DTYPE[a.dtype]) for a, a0 in zip(arrs, at))
+        return slot, x, c, slot[at[2] : at[2] + sizes[2]].view(torch.int32)
+
+    def _slot(self, nbytes: int) -> torch.Tensor:
+        """A pinned staging buffer of at least nbytes: the last one freed,
+        or a new one in its place where that is smaller (so the slots grow
+        to the largest batch seen).  Called under self._lock."""
+        slot = self._free_slots.pop() if self._free_slots else None
+        if slot is None or slot.numel() < nbytes:
+            slot = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return slot
+
+    def _release(self, slot) -> None:
+        """A fetched batch's staging buffer, free again: its copies are
+        done.  At most PIPELINE_WINDOW + 1 are kept."""
+        if slot is not None:
+            with self._lock:
+                if len(self._free_slots) <= self.PIPELINE_WINDOW:
+                    self._free_slots.append(slot)
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A staged host tensor on the device, copied asynchronously on the
+        current stream."""
+        return t if self._stream is None else t.to(self.device, non_blocking=True)
 
     # Max |S| per internal SA batch.  The reference also batches its
     # linear algorithm (memory_limit/20 "because of SAIS",
@@ -599,7 +693,7 @@ class LinearEncoder:
                     count = int(count)
                 with self._stage("fetch_unpack"):
                     return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
-        _, host, event, cap, n, ids, positions, _keep = handle
+        _, host, event, cap, n, full, slot = handle
         with self._stage("device_wait"):
             if event is not None:
                 event.synchronize()
@@ -612,12 +706,17 @@ class LinearEncoder:
                 if ratio > self._cap_ratio:
                     self._cap_ratio = ratio
             if count <= cap:
-                return f[1 : 1 + count].copy(), f[1 + cap : 1 + cap + count].copy()
-            # Capacity overflow (id stream denser than cap): copy the full
-            # ids and positions, which the handle kept on the device.
-            self.full_fetches += 1
-            with self._on_stream():
-                return ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
+                out = f[1 : 1 + count].copy(), f[1 + cap : 1 + cap + count].copy()
+            else:
+                # Capacity overflow (id stream denser than cap): copy the
+                # full ids and positions, which the handle kept on the
+                # device or, for a graph's batch, runs again.
+                self.full_fetches += 1
+                with self._on_stream():
+                    ids, positions = full()
+                    out = ids[:count].cpu().numpy(), positions[:count].cpu().numpy()
+        self._release(slot)
+        return out
 
     def _encode_units_scalar(self, data, occ, ustart, ulen, ucplen) -> np.ndarray:
         """Long-token vocab route: native scalar encode of each unique
@@ -682,45 +781,83 @@ class LinearEncoder:
     def _encode_batch(self, cps: np.ndarray, as_handle: bool = False):
         """One text batch.  as_handle=True returns a handle for
         _fetch_batch (the pipelined path: the work is only enqueued);
-        otherwise returns the batch's ids as a host array."""
+        otherwise returns the batch's ids as a host array.
+
+        On a card the batch replays the CUDA graph of its graph_key: the
+        staged inputs are copied into the graph's static inputs, the
+        replay follows, then the compact vector's copy into the batch's
+        pinned staging buffer and its event, all on the encoder's stream
+        (so a batch's copy is done before the next replay overwrites the
+        static vector).  A key's first batch runs as launches and then
+        captures the graph, with its device inputs as the static ones."""
         n = int(cps.shape[0])
-        m = self._merge
-        if m is None:  # huge alphabet x huge token
+        if self._merge is None:  # huge alphabet x huge token
             with self._on_stream():
                 out = self._encode_batch_doubling(cps, with_positions=as_handle)
             return ("full",) + tuple(out) if as_handle else out
 
         x_dense, cps_pad, cap = self.batch_inputs(cps)
-        keep: list = []
-        with self._on_stream():
-            fused, ids, positions = _linear_batch_compact(
-                self._to_device(x_dense, keep),
-                self._to_device(cps_pad, keep),
-                n,
-                m.tok_keys,
-                m.tok_len,
-                m.tok_id,
-                m.tok_kind,
-                bits=m.bits,
-                per=m.per,
-                nk=m.nk,
-                max_len=self.max_len,
-                unk_id=self._unk_id,
-                cap=cap,
-            )
-            self.device_batches += 1
+        with self._stage("batch_enqueue"), self._lock, self._on_stream():
+            slot, *staged, host = self._staged(x_dense, cps_pad, 1 + 2 * cap)
+            key = graph_key(x_dense, cps_pad, cap)
+            g = self._graphs.get(key) if self._graphs is not None else None
+            if g is not None:
+                g.x_dense.copy_(staged[0], non_blocking=True)
+                g.cps_pad.copy_(staged[1], non_blocking=True)
+                g.graph.replay()
+                self._batch_ran(graph=True)
+                fused = g.fused
+
+                def full():
+                    # The static buffers may hold a later batch by now.
+                    return self._run_batch(*map(self._to_device, staged), cap)[1:]
+            else:
+                x_d, c_d = map(self._to_device, staged)
+                fused, ids, positions = self._run_batch(x_d, c_d, cap)
+
+                def full():
+                    return ids, positions
+
+                if self._graphs is not None:
+                    self._graphs[key] = self._capture_batch(x_d, c_d, cap)
+            host.copy_(fused, non_blocking=True)  # ONE D2H transfer
             event = None
             if self._stream is not None:
-                host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=True)
-                host.copy_(fused, non_blocking=True)  # ONE D2H transfer
                 event = torch.cuda.Event()
                 event.record(self._stream)
-            else:
-                host = fused
-        handle = ("compact", host, event, cap, n, ids, positions, keep)
+        handle = ("compact", host, event, cap, n, full, slot)
         if as_handle:
             return handle
         return self._fetch_batch(handle)[0]
+
+    def _program(self, x_d: torch.Tensor, c_d: torch.Tensor, cap: int):
+        """The batch program on device inputs, on the current stream:
+        (fused, ids, positions) of _linear_batch_compact.  It runs at the
+        padded length: the pads are spaces in c_d and the pad symbol in
+        x_d, which sorts after every token, matches nothing and which the
+        commit skips, so the ids, positions and count are the true
+        length's, and one graph serves every length of a bucket."""
+        m = self._merge
+        return _linear_batch_compact(
+            x_d, c_d, int(x_d.shape[0]), m.tok_keys, m.tok_len, m.tok_id, m.tok_kind,
+            bits=m.bits, per=m.per, nk=m.nk, max_len=self.max_len, unk_id=self._unk_id, cap=cap,
+        )
+
+    def _run_batch(self, x_d: torch.Tensor, c_d: torch.Tensor, cap: int):
+        """_program as launches, counted as a batch run."""
+        out = self._program(x_d, c_d, cap)
+        self._batch_ran()
+        return out
+
+    def _capture_batch(self, x_d: torch.Tensor, c_d: torch.Tensor, cap: int) -> BatchGraph:
+        """The graph of _program with x_d and c_d as its static inputs.  The
+        batch that brings a key runs as launches first, which builds each
+        kernel's library before the capture.  The capture runs nothing, and
+        the kernel wrappers count no launch inside it."""
+        graph, (fused, _, _) = _capture(lambda: self._program(x_d, c_d, cap),
+                                        self._capture_stream, self._graph_pool)
+        self._count("graph_captures")
+        return BatchGraph(graph, x_d, c_d, fused)
 
     def doubling_string(self, cps: np.ndarray) -> np.ndarray:
         """The fallback's S, int32[_bucket(|S|)]: text · -1 · the vocab
@@ -740,7 +877,7 @@ class LinearEncoder:
         sa_tables, feats = self.doubling_inputs(cps)
         best_id, best_len = match_from_sa(*sa_tables, feats.window, feats.wp,
                                           max_len=self.max_len)
-        self.device_batches += 1
+        self._batch_ran()
         ids, positions, count = commit_ops.commit_with_positions(best_id, best_len, feats, n,
                                                                  unk_id=self._unk_id)
         if with_positions:

@@ -28,7 +28,8 @@ suffix-array sweeps, the fast-stream engine's probes).
 `commit_with_positions` runs that plain version for CPU tensors and the
 hand-written CUDA kernels of csrc/commit.cu (ops/commit_cuda.py:
 KERNEL_LAUNCHES = 3 launches, the call counted once in
-commit_with_positions.launches) for CUDA tensors; never a fallback from
+commit_with_positions.launches unless a CUDA graph's capture records
+it) for CUDA tensors; never a fallback from
 one to the other.  Both walk to the fixed point, as the JAX package's
 while_loop does: the plain version stops on the first round that marks
 nothing new, and the kernels walk each tile of positions on its own, by
@@ -75,7 +76,8 @@ def commit_with_positions(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = commit_cuda.launch(best_id, best_len, feats, int(n_valid), unk_id=int(unk_id))
-    commit_with_positions.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        commit_with_positions.launches += 1
     return out
 
 

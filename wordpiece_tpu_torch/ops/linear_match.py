@@ -28,7 +28,8 @@ shared by both kinds.
 ops, [max_len, n] matrices and all), for CPU tensors and the hand-written
 CUDA kernels of csrc/linear_match.cu (ops/linear_match_cuda.py:
 KERNEL_LAUNCHES = 3 launches and no memset, the call counted once in
-match_from_sa.launches) for CUDA tensors; never a fallback from one to the
+match_from_sa.launches unless a CUDA graph's capture records it) for
+CUDA tensors; never a fallback from one to the
 other.  The kernels hold the slots' other form: at each rank the set of
 lengths whose slot is alive, a bitset of at most three words a kind in a
 thread's registers (kill the lengths above the entering edge, then set
@@ -115,7 +116,8 @@ def match_from_sa(
         raise ValueError(f"unsupported device {dev}")
     out = linear_match_cuda.launch(rank, lcp, who_len, who_id, who_kind, window, wp,
                                    max_len=int(max_len))
-    match_from_sa.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        match_from_sa.launches += 1
     return out
 
 

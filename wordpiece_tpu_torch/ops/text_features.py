@@ -24,7 +24,8 @@ skipped and never emit.
 `compute_features` runs its plain version (compute_features_plain) for
 a CPU tensor and the hand-written CUDA kernel csrc/text_features.cu
 (ops/text_features_cuda.py: one launch, counted in
-compute_features.launches) for a CUDA tensor; never a fallback from one
+compute_features.launches unless a CUDA graph's capture records it)
+for a CUDA tensor; never a fallback from one
 to the other.
 """
 
@@ -95,7 +96,8 @@ def compute_features(cp: torch.Tensor, n_valid: int, max_len: int) -> TextFeatur
     if cp.device.type != "cuda":
         raise ValueError(f"unsupported device {cp.device}")
     feats = TextFeatures(**text_features_cuda.launch(cp, int(n_valid), int(max_len)))
-    compute_features.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        compute_features.launches += 1
     return feats
 
 
