@@ -141,3 +141,63 @@ def test_cpu_encode_launches_no_kernel():
     before = (match_fast.match_positions.launches, wk.word_match_commit_multi.launches)
     run_three("a b ab", ["[UNK]", "a", "b", "##b"])
     assert (match_fast.match_positions.launches, wk.word_match_commit_multi.launches) == before
+
+
+# encode_bytes: the bytes decoded as the reference decodes them (invalid
+# bytes dropped; the native decoder from 4,096 bytes on), then the same
+# path as encode_codepoints.  Held to encode_codepoints, the port's oracle
+# and the port's fast and linear engines' encode_bytes.
+def _cut(data: bytes, n: int) -> bytes:
+    """The first n bytes of an ASCII corpus: n codepoints."""
+    assert len(data) >= n and data[:n].isascii()
+    return data[:n]
+
+
+BYTES_CASES = {
+    "invalid_utf8": lambda t: b"\xff" + t[:300] + b" \xc3 ab\x80cd \xe2\x82 " + t[300:600] + b"\xed\xa0\x80 x\xf8",
+    "cjk": lambda t: t[:200] + " 中文字 東京タワー 中ab ".encode() + t[200:400],
+    "u2581": lambda t: t[:200] + " ▁the ▁ ab▁cd ".encode() + t[200:400],
+    "longer_than_longest_token": lambda t: t[:100] + b" " + b"abcdefgh" * 9 + b" " + b"e" * 70 + b" " + t[100:300],
+    "whole_word_unk": lambda t: t[:100] + " abcЖxyz theЖ Ж ".encode() + t[100:300],
+    "empty": lambda t: b"",
+    "cp_127": lambda t: _cut(t, 127),
+    "cp_128": lambda t: _cut(t, 128),
+    "cp_129": lambda t: _cut(t, 129),
+    "bytes_4095": lambda t: _cut(t, 4095),
+    "bytes_4096": lambda t: _cut(t, 4096),
+    "bytes_4097": lambda t: _cut(t, 4097),
+    "cjk_across_4096": lambda t: _cut(t, 4094) + "中文".encode(),
+    "corpus_20k": lambda t: t,
+}
+
+
+@pytest.fixture(scope="module")
+def bytes_engines():
+    from wordpiece_tpu_torch import make_encoder
+    from wordpiece_tpu_torch.runtime import loader
+
+    if not loader.available():
+        pytest.skip("native runtime required by the fast and linear engines")
+    text = make_corpus(20_000, seed=23)
+    lines = make_vocab(text, vocab_size=800, seed=23)
+    vocab = parse_vocab(lines)
+    assert vocab.max_len < 70
+    engines = {name: make_encoder(vocab, name, device="cpu") for name in ("fast-stream", "fast", "linear")}
+    return text, vocab, engines
+
+
+@pytest.mark.parametrize("case", list(BYTES_CASES))
+def test_encode_bytes_equals_codepoints_oracle_and_engines(case, bytes_engines):
+    text, vocab, engines = bytes_engines
+    data = BYTES_CASES[case](text)
+    got = engines["fast-stream"].encode_bytes(data)
+    cps = uni.decode_utf8(data)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, engines["fast-stream"].encode_codepoints(cps))
+    np.testing.assert_array_equal(got, np.asarray(encode_oracle(cps.astype(np.int32), vocab), dtype=np.int32))
+    for name in ("fast", "linear"):
+        np.testing.assert_array_equal(got, engines[name].encode_bytes(data), err_msg=name)
+    if case == "whole_word_unk":
+        assert (got == vocab.unk_token_id).sum() >= 3
+    if case == "empty":
+        assert got.shape == (0,)

@@ -1,8 +1,9 @@
 """The port's StageStats (self time, counters, updates from several
-threads) and the stages and route counters both engines record: the
-caller thread's stages cover each call with its unstaged rest, every
-first-seen unit is counted on exactly one route, and an encoder with no
-StageStats attached never reaches it."""
+threads) and the stages and route counters the fast and linear engines
+record: the caller thread's stages cover each call with its unstaged
+rest, every first-seen unit is counted on exactly one route, and an
+encoder with no StageStats attached never reaches it.  The fast-stream
+engine's stages, each once a call, and its two size counters, likewise."""
 
 import sys
 import threading
@@ -221,3 +222,60 @@ def test_without_stats_nothing_is_recorded(engine, corpus, monkeypatch):
     enc = chunked(engine, vocab)
     assert enc.stats is None
     np.testing.assert_array_equal(enc.encode_bytes(data), want)
+
+
+# The fast-stream engine: every stage on the caller's thread, once a call.
+STREAM_CALLER = ("host_decode", "host_pad", "stream_h2d", "device_dispatch", "device_fetch")
+STREAM_STAGES = ("encode",) + STREAM_CALLER + ("device_wait", "fetch_unpack")
+
+
+@pytest.fixture(scope="module")
+def stream_corpus():
+    data = make_corpus(60_000, seed=5)
+    vocab = parse_vocab(make_vocab(data, vocab_size=1000, seed=5))
+    return data, vocab
+
+
+def test_stream_stages_of_one_encode(stream_corpus):
+    from wordpiece_tpu_torch.engine import bucket_size
+
+    data, vocab = stream_corpus
+    enc = make_encoder(vocab, "fast-stream", device="cpu")
+    cps = uni.decode_utf8(data)
+    want = enc.encode_codepoints(cps)
+    enc.stats = StageStats()
+    for calls in (1, 2):
+        np.testing.assert_array_equal(enc.encode_bytes(data), want)
+        rep = enc.stats.report()
+        assert set(rep) == set(STREAM_STAGES) | {"counters"}
+        assert all(rep[s]["calls"] == calls for s in STREAM_STAGES)
+        assert rep["encode"]["bytes"] == rep["host_decode"]["bytes"] == calls * len(data)
+        staged = sum(rep[s]["seconds"] for s in STREAM_CALLER)
+        assert staged + rep["encode"]["self_seconds"] == pytest.approx(rep["encode"]["seconds"], rel=0.01)
+        assert rep["device_fetch"]["seconds"] >= rep["device_wait"]["seconds"] + rep["fetch_unpack"]["seconds"]
+        assert rep["counters"] == {"stream_positions": calls * bucket_size(cps.shape[0]),
+                                   "stream_table_rows": calls * enc.table.slots.shape[0]}
+
+
+def test_stream_encode_codepoints_opens_encode_once_and_no_decode(stream_corpus):
+    data, vocab = stream_corpus
+    enc = make_encoder(vocab, "fast-stream", device="cpu")
+    enc.stats = StageStats()
+    enc.encode_codepoints(uni.decode_utf8(data))
+    rep = enc.stats.report()
+    assert "host_decode" not in rep and rep["encode"]["calls"] == 1 and rep["host_pad"]["calls"] == 1
+
+
+def test_stream_without_stats_nothing_is_recorded(stream_corpus, monkeypatch):
+    data, vocab = stream_corpus
+    enc = make_encoder(vocab, "fast-stream", device="cpu")
+    want = enc.encode_bytes(data)
+
+    def boom(*a, **k):
+        raise AssertionError("StageStats reached with no stats attached")
+
+    monkeypatch.setattr(StageStats, "stage", boom)
+    monkeypatch.setattr(StageStats, "count", boom)
+    assert enc.stats is None
+    np.testing.assert_array_equal(enc.encode_bytes(data), want)
+    np.testing.assert_array_equal(enc.encode_codepoints(uni.decode_utf8(data)), want)

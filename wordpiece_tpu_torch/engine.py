@@ -13,13 +13,23 @@ is a hand-written kernel: the features csrc/text_features.cu
 and the commit csrc/commit.cu (ops/commit.py), one call of each an encode.
 On device="cpu" the same wrappers run their plain PyTorch versions;
 nothing falls back from one to the other.
+
+An encoder handed a utils.profiling.StageStats as `stats` records, on the
+caller's thread, `encode` around each call and inside it `host_decode`
+(encode_bytes only), `host_pad`, `stream_h2d`, `device_dispatch` and
+`device_fetch` (with `device_wait` and `fetch_unpack` inside), and counts
+the positions the kernels ran (`stream_positions`) and the probe table's
+rows (`stream_table_rows`) once a call.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .core.unicode import decode_utf8
 from .core.vocab import Vocabulary, VocabIndex, build_index
 from .engine_word import resolve_device
 from .ops import commit as commit_ops
@@ -103,16 +113,44 @@ class FastEncoder:
         self.index = index if index is not None else build_index(vocab)
         self.table = match_fast.pack_table(self.index, self.device)
         self._statics = index_statics(self.index)
+        self.stats = None  # optional utils.profiling.StageStats
+
+    def _stage(self, name: str, nbytes: int = 0):
+        st = self.stats
+        return st.stage(name, nbytes) if st is not None else contextlib.nullcontext()
+
+    def encode_bytes(self, data: bytes) -> np.ndarray:
+        """Encode UTF-8 bytes (invalid bytes dropped, as the reference's
+        decoder does); returns an int32 id array."""
+        with self._stage("encode", len(data)):
+            with self._stage("host_decode", len(data)):
+                cps = decode_utf8(data)
+            return self._encode(cps)
 
     def encode_codepoints(self, cps: np.ndarray) -> np.ndarray:
-        """Encode a host codepoint array; returns an int32 id array.  One
-        host read of the device per call (the id count), then the ids'
-        copy."""
-        cps = np.asarray(cps, dtype=np.int32)
-        n = cps.shape[0]
+        """Encode a host codepoint array; returns an int32 id array."""
+        with self._stage("encode"):
+            return self._encode(cps)
+
+    def _encode(self, cps) -> np.ndarray:
+        """One host read of the device per call (the id count), then the
+        ids' copy."""
+        n = len(cps)
         if n == 0:
             return np.zeros(0, dtype=np.int32)
-        cp_pad = torch.from_numpy(pad_codepoints(cps, self._statics["max_len"]))
-        ids, count = encode_padded(cp_pad.to(self.device), n, self.table, **self._statics)
-        count = int(count)
-        return ids[:count].cpu().numpy()
+        max_len = self._statics["max_len"]
+        with self._stage("host_pad"):
+            cp_pad = torch.from_numpy(pad_codepoints(np.asarray(cps, dtype=np.int32), max_len))
+        with self._stage("stream_h2d"):
+            cp_dev = cp_pad.to(self.device)
+        with self._stage("device_dispatch"):
+            ids, count = encode_padded(cp_dev, n, self.table, **self._statics)
+        with self._stage("device_fetch"):
+            with self._stage("device_wait"):
+                count = int(count)
+            with self._stage("fetch_unpack"):
+                out = ids[:count].cpu().numpy()
+        if self.stats is not None:
+            self.stats.count("stream_positions", bucket_size(n))
+            self.stats.count("stream_table_rows", self.table.slots.shape[0])
+        return out
