@@ -12,9 +12,10 @@ JAX package.  Phases, each fatal on failure:
     compaction kernel and the split match and commit kernels, one library),
     csrc/match_fast.cu (the fast-stream engine's probe),
     csrc/text_features.cu (the features kernel), csrc/commit.cu (the
-    commit kernels) and csrc/linear_match.cu (the linear engine's match
-    over the suffix array), all five at once; ptxas' registers, shared
-    memory and spills are printed for each;
+    commit kernels), csrc/linear_match.cu (the linear engine's match
+    over the suffix array) and csrc/utf8_decode.cu (the fast-stream
+    engine's decode), all six at once; ptxas' registers, shared memory and
+    spills are printed for each;
  3. kernels vs plain: on the card, on the same unit matrices (random ASCII,
     multilingual, astral-plane, UNK-heavy, empty rows; a row count that
     ends in a partial tile) at widths 7/15/31/127 with the bert-shaped
@@ -133,9 +134,10 @@ JAX package.  Phases, each fatal on failure:
     make_encoder(vocab, "fast-stream", device="cuda") encodes the 10 MB
     en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
     stream (byte-identical), and the CLI's fast-stream mode runs on one
-    file; the features, probe and commit kernels must each have launched
-    once per encode, the probe with its tags in shared memory (read from
-    its count of global-tag launches), and the word kernels not at all.
+    file; the features, probe and commit kernels and the decode's count
+    and write kernels must each have launched once per encode, the probe
+    with its tags in shared memory (read from its count of global-tag
+    launches), and the word kernels not at all.
     Then, in this process, a one-rank nccl group: ShardedFastEncoder on a
     1-D grid and encode_2d_parallel on a 1 x 1 grid encode 10 MB en, equal
     to the oracle, with one launch of each of the three kernels each;
@@ -147,15 +149,33 @@ JAX package.  Phases, each fatal on failure:
     versions' and their bounds, and one call of each captured in a CUDA
     graph, whose nodes must be one kernel and one memset for the features,
     and three kernels and one memset for the commit; the 10 MB en
-    fast-stream rate (min and median of 5) with each part's time (host
-    decode, host padding, H2D, features, match, commit, count and D2H) and
-    each device part's host enqueue time; with --compare DIR, the same
+    fast-stream rate (min and median of 5) with each part's time (the
+    bytes into the pinned slot, H2D, the decode's count with its read and
+    its write, features, match, commit, count and D2H) and each device
+    part's host enqueue time; with --compare DIR, the same
     encode's rate and parts (each checkout's own stream_parts), and the
     linear rate, from the checkout at DIR and from this one, each in a
     process of its own, in the same turns as phase 7's; the peak of
     max_memory_allocated, and one encode under torch.profiler (device time
-    by op class, busy share), which must show the three kernels and no
-    torch scan (cummin) or scatter kernel;
+    by op class, busy share), which must show the three kernels, a decode
+    kernel and no torch scan (cummin) or scatter kernel;
+10b. the UTF-8 decode: the count and write kernels (count_codepoints,
+    write_codepoints) against decode_plain, the count and the whole int32
+    output at the count, one more and the engine's bucket (written into
+    memory the allocator hands back dirty, so the zeros are the kernel's),
+    on uniform and edge-byte strings at lengths around a thread's 16 bytes
+    and the 4,096-byte tile, valid text with a 2-, 3- or 4-byte sequence
+    across such an edge or cut off by the end there, random valid text of
+    every width, every golden text and the 10 MB en/ru/ja/zh corpora.
+    Integers: exactly 0.  Then, at the 10 MB en bucket, the decode's device
+    time (count with its memset and 4-byte copy, write, both) by CUDA
+    events behind a spin kernel, beside its bound (2 bytes a byte in and 4
+    a position of the bucket) and the plain version's time on the card,
+    and one encode_bytes under torch.profiler; the whole call by
+    encode_bytes against the host's decode, pad and pageable copy
+    (encode_codepoints of decode_utf8), in turns, on the 10 MB en file and
+    a 3,000-byte article; and the card's peak over what it held, a 10 MB
+    call each way, which the decode must not raise;
 11. split kernels vs plain: the word kernel split in two for the
     vocab-partitioned path.  The match kernel (word_match_packed: every
     position's longest hit, one packed int32) equals the plain word_match,
@@ -221,8 +241,8 @@ JAX package.  Phases, each fatal on failure:
     device_batches > 0; the word kernel and the compaction must have
     launched alike, the probe once a fast-stream encode, the linear match
     once a linear device batch run by launches (not a graph's replay), the
-    features and commit kernels once for each of both, the split kernels
-    not at all.  The kernels line gives
+    features and commit kernels once for each of both, the decode's two
+    kernels once a fast-stream encode, the split kernels not at all.  The kernels line gives
     each kernel's launches in this run as `harness_launches`;
 15. stress: the reference's differential stress configurations
     (bench/stress_cases.py, the JAX package's reference-scale stress test's
@@ -247,7 +267,8 @@ JAX package.  Phases, each fatal on failure:
     versions (as in 8b) on the probe kernel's matches: the longest chain
     the commit's walk can be given.  Fast-stream must launch the
     features, probe and commit kernels once an encode, the word kernel and
-    the compaction launch alike; every linear batch must be a graph's
+    the compaction launch alike, fast-stream also the decode's count and
+    write kernels once an encode; every linear batch must be a graph's
     replay or run by launches, run the features, match and commit kernels
     once each in the profile, and the wrappers count one call each a
     batch run by launches.  The kernels line gives each kernel's wrapper
@@ -626,6 +647,8 @@ def op_class(name: str) -> str:
         return "commit kernels"
     if "sa_match_" in low:
         return "linear match kernels"
+    if "utf8_" in low and "_kernel" in low:
+        return "utf8 decode kernels"
     if low.startswith(("memcpy", "memset")):
         return "copies (memcpy)"
     if "sort" in low or "radix" in low:
@@ -1193,29 +1216,26 @@ def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: 
 
 def stream_parts(enc, data: bytes):
     """One fast-stream encode of `data`, part by part, the steps of
-    api._encode_with and FastEncoder.encode_codepoints: the host's decode
-    and padding by the host clock, each on its own, then H2D, features,
-    match, commit, and the count's read with the ids' D2H by CUDA events,
-    and each device part's host time between the same two events.
-    Returns (ids, ms by part)."""
-    import numpy as np
+    FastEncoder.encode_bytes: the bytes into the encoder's pinned slot by
+    the host clock, then the H2D, the decode's count with the host's read
+    of it, the decode's write, features, match, commit, and the count's
+    read with the ids' D2H by CUDA events, and each device part's host
+    time between the same two events.  Returns (ids, ms by part)."""
     import torch
 
-    from wordpiece_tpu_torch.core import unicode as uni
-    from wordpiece_tpu_torch.engine import pad_codepoints
+    from wordpiece_tpu_torch.engine import bucket_size
     from wordpiece_tpu_torch.ops import commit as commit_ops
     from wordpiece_tpu_torch.ops import match_fast as mf
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
     from wordpiece_tpu_torch.ops.text_features import compute_features
 
     st = dict(enc._statics)
     unk_id = st.pop("unk_id")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cps = uni.decode_utf8(data).astype(np.int32)
+    host = enc._staged(data)
     t1 = time.perf_counter()
-    cp_np = pad_codepoints(cps, st["max_len"])
-    t2 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
     stamps = []  # the host clock at each event's record
 
     def mark(i):
@@ -1223,20 +1243,26 @@ def stream_parts(enc, data: bytes):
         stamps.append(time.perf_counter())
 
     mark(0)
-    cp_pad = torch.from_numpy(cp_np).to(enc.device)
+    dev_bytes = host.to(enc.device, non_blocking=True)
     mark(1)
-    n = cp_pad.shape[0] - st["max_len"]
-    feats = compute_features(cp_pad[:n], int(cps.shape[0]), st["max_len"])
+    counted = ud.count_codepoints(dev_bytes)
     mark(2)
-    best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
+    n = counted.n
+    cp_pad = ud.write_codepoints(counted, bucket_size(n) + st["max_len"])
+    del counted, dev_bytes
     mark(3)
-    ids, count = commit_ops.commit(best_id, best_len, feats, int(cps.shape[0]), unk_id=unk_id)
+    feats = compute_features(cp_pad[: cp_pad.shape[0] - st["max_len"]], n, st["max_len"])
     mark(4)
-    out = ids[: int(count)].cpu().numpy()
+    best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
     mark(5)
-    ev[5].synchronize()
-    names = ("h2d", "features", "match", "commit", "count_and_d2h")
-    parts = {"host_decode": (t1 - t0) * 1e3, "host_pad": (t2 - t1) * 1e3}
+    ids, count = commit_ops.commit(best_id, best_len, feats, n, unk_id=unk_id)
+    mark(6)
+    out = ids[: int(count)].cpu().numpy()
+    mark(7)
+    ev[7].synchronize()
+    names = ("h2d", "decode_count", "decode_write", "features", "match", "commit",
+             "count_and_d2h")
+    parts = {"host_slot": (t1 - t0) * 1e3}
     parts.update({k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)})
     # A part whose kernel is shorter than the host's enqueue of it shows
     # the enqueue by events: the card waits for the host.
@@ -1266,6 +1292,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     from wordpiece_tpu_torch.ops import commit_cuda
     from wordpiece_tpu_torch.ops import match_fast as mf
     from wordpiece_tpu_torch.ops import text_features as tfo
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
     from wordpiece_tpu_torch.ops import word_kernel_cuda as wk
     from wordpiece_tpu_torch.ops.match_fast import load_table
     from wordpiece_tpu_torch.parallel import sharding as sh
@@ -1377,6 +1404,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     # ---- 9. stream main path ------------------------------------------------
     mp.launches = mp.launches_global = 0
     fk.launches = ck.launches = 0
+    ud.count_codepoints.launches = ud.write_codepoints.launches = 0
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
     calls = 0
     for lang, enc in encs.items():
@@ -1426,7 +1454,9 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     launches, launches_global = mp.launches, mp.launches_global
     word = (mc.launches, wk.compact_from_counts.launches)
     stream_launches = {"compute_features": fk.launches, "match_positions": launches,
-                       "commit_with_positions": ck.launches}
+                       "commit_with_positions": ck.launches,
+                       "utf8_count": ud.count_codepoints.launches,
+                       "utf8_write": ud.write_codepoints.launches}
     emit_json({"phase": "stream_main_path_launches", **stream_launches,
                "match_positions_global_tags": mp.launches_global,
                "encode_calls": calls, "word_kernels": list(word)})
@@ -1563,7 +1593,8 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     # scatter_reduce left on the path; memsets and copies may remain.
     torch_ops = [r for r in rows if op_class(r[0]) in ("scans (cummax/cummin/cumsum)", "scatters")
                  or any(k in r[0].lower() for k in ("cummin", "scatter"))]
-    missing = {"features kernel", "match_positions kernel", "commit kernels"} - set(classes)
+    missing = ({"features kernel", "match_positions kernel", "commit kernels",
+                "utf8 decode kernels"} - set(classes))
     if torch_ops or missing:
         raise AssertionError(f"fast-stream profile: torch scans or scatters {torch_ops}, "
                              f"kernels not seen {sorted(missing)}")
@@ -1667,6 +1698,182 @@ def stream_compare(other_root: str, card: str, data: bytes, lines: list, want) -
             turns.append({"tree": who, **json.loads(res.stdout.strip().splitlines()[-1])})
     return {"phase": "stream_compare", "card": card, "corpus": "en_10MB",
             "other": roots["other"], "turns": turns}
+
+
+# ---- phase 10b: the UTF-8 decode on the card ---------------------------------
+UTF8_TILE = 4096  # bytes a tile of csrc/utf8_decode.cu; 16 a thread
+# Bytes at the edges of the decoder's ranges (tests/test_torch_utf8_decode.py's).
+UTF8_EDGE = bytes([0x00, 0x20, 0x41, 0x7F, 0x80, 0x8F, 0x90, 0x9F, 0xA0, 0xBF, 0xC0, 0xC1, 0xC2,
+                   0xDF, 0xE0, 0xE1, 0xEC, 0xED, 0xEE, 0xEF, 0xF0, 0xF1, 0xF3, 0xF4, 0xF5, 0xF7,
+                   0xF8, 0xFB, 0xFC, 0xFE, 0xFF])
+# Characters of each encoded width.
+UTF8_CHARS = {1: "az 09.", 2: "éßЖñ߿", 3: "€中ア한\uffff", 4: "\U0001f600\U00020000\U0010ffff"}
+
+
+def utf8_texts(rng) -> dict:
+    """Phase 10b's inputs: uniform and edge-pool bytes at lengths around a
+    thread's 16 bytes and the 4,096-byte tile, valid text with a 2-, 3- or
+    4-byte sequence across each such edge or cut off by the end there, and
+    random valid text of every width over three tiles."""
+    import numpy as np
+
+    out = {}
+    pool = np.frombuffer(UTF8_EDGE, np.uint8)
+    lengths = [1, 2, 3, 4, 15, 16, 17, 18, 19, *range(UTF8_TILE - 3, UTF8_TILE + 4),
+               *range(2 * UTF8_TILE - 3, 2 * UTF8_TILE + 4), 3 * UTF8_TILE + 1, (1 << 20) + 3]
+    for n in lengths:
+        out[f"uniform_{n}"] = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        out[f"edge_{n}"] = pool[rng.integers(0, len(pool), n)].tobytes()
+    for edge in (16, 32, UTF8_TILE, 2 * UTF8_TILE, 3 * UTF8_TILE):
+        for width in (2, 3, 4):
+            seq = UTF8_CHARS[width][0].encode()
+            for k in range(1, width):  # the sequence starts k bytes before the edge
+                out[f"across_{edge}_w{width}_k{k}"] = b"a" * (edge - k) + seq + b" tail"
+                out[f"cut_{edge}_w{width}_k{k}"] = b"a" * (edge - k) + seq[:k]
+    chars = [c for group in UTF8_CHARS.values() for c in group]
+    out["mixed_valid_3_tiles"] = "".join(rng.choice(chars, 6000)).encode()
+    return out
+
+
+def utf8_check(data: bytes, max_len: int, label: str) -> dict:
+    """The decode kernels (count_codepoints, write_codepoints on the card)
+    against decode_plain: the count, and the whole int32 output at three
+    sizes (the count, one more, the engine's bucket), each written into
+    memory the allocator hands back dirty.  Raises unless exact."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch.engine import bucket_size
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
+
+    host = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    want = ud.decode_plain(host)
+    counted = ud.count_codepoints(host.cuda())
+    n = counted.n
+    if n != want.shape[0]:
+        raise AssertionError(f"{label}: the kernel counted {n} codepoints, the plain {want.shape[0]}")
+    err = 0
+    for size in sorted({n, n + 1, bucket_size(n) + max_len}):
+        torch.full((size,), -7, dtype=torch.int32, device="cuda")  # a dirty block to reuse
+        got = ud.write_codepoints(counted, size)
+        expect = torch.cat([want, torch.zeros(size - n, dtype=torch.int32)])
+        err = max(err, exact_diff([got.cpu()], [expect], f"{label} size {size}"))
+    return {"input": label, "bytes": len(data), "codepoints": n, "max_abs_err": err}
+
+
+def utf8_phase(card: str, corpora: dict, goldens: list, rng) -> dict:
+    """Phase 10b (module docstring).  Returns the decode's entry of the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    import wordpiece_tpu_torch as wpt
+    from wordpiece_tpu_torch.core import unicode as uni
+    from wordpiece_tpu_torch.core.vocab import parse_vocab
+    from wordpiece_tpu_torch.engine import bucket_size
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
+    from wordpiece_tpu_torch.ops import utf8_decode_cuda as udc
+
+    enc = wpt.make_encoder(corpora["en"][1], "fast-stream", device="cuda")
+    max_len = enc._statics["max_len"]
+    rows = [utf8_check(data, max_len, name) for name, data in utf8_texts(rng).items()]
+    rows += [utf8_check(corpus, max_len, f"golden_{name}") for name, corpus, _, _ in goldens]
+    rows += [utf8_check(data, max_len, f"{lang}_10MB") for lang, (data, _, _) in corpora.items()]
+    max_err = max(r["max_abs_err"] for r in rows)
+    emit_json({"phase": "utf8_vs_plain", "inputs": len(rows), "max_abs_err": max_err,
+               "rows": [r for r in rows if r["bytes"] >= 1 << 20 or r["input"].startswith(
+                   ("golden", "mixed"))]})
+
+    # The kernels' device time at the 10 MB en bucket: the two launches
+    # with the count's memset and 4-byte copy, behind a spin kernel.
+    data = corpora["en"][0]
+    lib = udc.build()
+    dev_bytes = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).cuda()
+    counted = ud.count_codepoints(dev_bytes)
+    n = counted.n
+    size = bucket_size(n) + max_len
+    scratch = counted.state
+    word = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    out = torch.empty(size, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = dev_bytes.data_ptr()
+
+    def count():
+        if lib.wp_utf8_count(ptr, len(data), scratch.data_ptr(), word.data_ptr(), stream):
+            raise RuntimeError("wp_utf8_count failed")
+
+    def write():
+        if lib.wp_utf8_write(ptr, len(data), scratch.data_ptr(), n, size, out.data_ptr(), stream):
+            raise RuntimeError("wp_utf8_write failed")
+
+    def both():
+        count()
+        write()
+
+    ms = {"count": device_ms(count, 50), "write": device_ms(write, 50), "decode": device_ms(both, 50)}
+    if word.item() != n or not torch.equal(out[:n].cpu(), ud.decode_plain(dev_bytes.cpu())):
+        raise AssertionError("the timed decode differs from the plain version")
+    nbytes = 2 * len(data) + 4 * size
+    b_ms, b_by = bound_ms(nbytes, 0)
+    plain_ms = cuda_ms(lambda: ud.decode_plain(dev_bytes), 3)
+    wall, prof_rows, _ = device_profile(lambda: enc.encode_bytes(data), None)
+    timing = {"bytes_in": len(data), "codepoints": n, "bucket": size, "ms": ms, "bytes": nbytes,
+              "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms["decode"],
+              "plain_ms": plain_ms, "encode_profile_rows": prof_rows[:12]}
+    emit_json({"phase": "utf8_time", "card": card, "corpus": "en_10MB", **timing})
+    del dev_bytes, counted, scratch, out
+
+    # The whole call, the bytes through the card against the host's decode,
+    # pad and pageable copy (encode_codepoints of decode_utf8: the path
+    # before the card decoded), in turns: a 10 MB file, a 3,000-byte article.
+    article = data[: uni.find_space_cut(data, 3000)]
+    calls = {"en_10MB": (data, 5), "article_3KB": (article, 300)}
+    compare = {}
+    for label, (text, reps) in calls.items():
+        ways = {"card_decode": lambda t=text: enc.encode_bytes(t),
+                "host_decode": lambda t=text: enc.encode_codepoints(
+                    uni.decode_utf8(t).astype(np.int32))}
+        if not np.array_equal(ways["card_decode"](), ways["host_decode"]()):
+            raise AssertionError(f"{label}: encode_bytes differs from encode_codepoints")
+        times = {k: [] for k in ways}
+        for turn in ("host_decode", "card_decode", "card_decode", "host_decode") * 2:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                ways[turn]()
+                times[turn].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+        compare[label] = {"bytes": len(text), "median_ms": med,
+                          "card_over_host": med["card_decode"] / med["host_decode"]}
+    # The card's peak over what it held before, a 10 MB call each way.
+    peaks = {}
+    for way, fn in (("card_decode", lambda: enc.encode_bytes(data)),
+                    ("host_decode", lambda: enc.encode_codepoints(
+                        uni.decode_utf8(data).astype(np.int32)))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks[way] = torch.cuda.max_memory_allocated() - resident
+    emit_json({"phase": "utf8_call", "card": card, "calls": compare,
+               "peak_over_resident_bytes": peaks})
+    if peaks["card_decode"] > peaks["host_decode"]:
+        raise AssertionError(f"the card's decode raised the call's peak: {peaks}")
+    return {
+        "name": "utf8_decode",
+        "route": "cuda",
+        "source": "wordpiece_tpu_torch/csrc/utf8_decode.cu",
+        "replaces": "none: the JAX engine decodes on the host (wordpiece_tpu/core/unicode.py)",
+        "layout": "2 launches, 1 memset and a 4-byte D2H a decode: count (forward sum scan with "
+                  "decoupled look-back over 4,096-byte tiles), the host's read, write (codepoints "
+                  "staged in shared memory, zeros to the bucket's end)",
+        "max_abs_err": max_err,
+        "ms": ms["decode"],
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
 
 
 # ---- phases 11-12: the word kernel split in two, the word sharded paths ------
@@ -2156,7 +2363,8 @@ def harness_phase(card: str) -> dict:
             or launches["match_positions"] != stream_encodes
             or launches["match_from_sa"] != lin_launched
             or launches["compute_features"] != stream_encodes + lin_launched
-            or launches["commit_with_positions"] != stream_encodes + lin_launched):
+            or launches["commit_with_positions"] != stream_encodes + lin_launched
+            or not launches["utf8_count"] == launches["utf8_write"] == stream_encodes):
         raise AssertionError(f"harness: launches {launches} against {stream_encodes} "
                              f"fast-stream encodes and {lin_launched} linear batches run by "
                              f"launches ({lin_batches} in all)")
@@ -2323,7 +2531,7 @@ def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_l
         if row["verify_repairs"] or row["device_fallbacks"]:
             raise AssertionError(f"stress {name}: the word engine repaired or rescued: {row}")
         want_zero = ("match_positions", "compute_features", "commit_with_positions",
-                     "match_from_sa")
+                     "match_from_sa", "utf8_count", "utf8_write")
         ok = (got["word_match_commit"] == got["compact"] and not split
               and not any(got[k] for k in want_zero))
         # A text of one unit wider than the widest bucket: the overflow route.
@@ -2339,7 +2547,8 @@ def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_l
         ok = (all(got[w] == routes["batches_eager"] for w in LINEAR_HAND_KERNELS)
               and all(v == b for v in routes["kernel_runs"].values())
               and not split and not got["word_match_commit"] and not got["compact"]
-              and not got["match_positions"]
+              and not got["match_positions"] and not got["utf8_count"]
+              and not got["utf8_write"]
               and routes["batches_graph"] + routes["batches_eager"] == b)
         if row["max_len"] > max_slot_len:  # the scalar route
             ok = ok and b == 0 and row["routes"]["scalar_route_units"] > 0
@@ -2347,7 +2556,7 @@ def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_l
             ok = ok and b > 0
     else:
         ok = (got["compute_features"] == got["match_positions"] == got["commit_with_positions"]
-              == 1 and not split and not got["word_match_commit"] and not got["compact"]
+              == got["utf8_count"] == got["utf8_write"] == 1 and not split and not got["word_match_commit"] and not got["compact"]
               and not got["match_from_sa"])
     if not ok:
         raise AssertionError(f"stress {name} {engine}: launches or routes {row}")
@@ -2388,6 +2597,7 @@ def main(argv=None) -> int:
     from wordpiece_tpu_torch.ops import linear_match_cuda as lmc
     from wordpiece_tpu_torch.ops import match_fast_cuda as mfc
     from wordpiece_tpu_torch.ops import text_features_cuda as tfc
+    from wordpiece_tpu_torch.ops import utf8_decode_cuda as udc
     from wordpiece_tpu_torch.ops.commit import commit_with_positions
     from wordpiece_tpu_torch.ops.linear_match import match_from_sa, match_from_sa_plain
     from wordpiece_tpu_torch.ops.match_fast import match_positions as mp
@@ -2409,7 +2619,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # One nvcc per source, started together.
     libs = {"word_kernel": wk, "match_fast": mfc, "text_features": tfc, "commit": cc,
-            "linear_match": lmc}
+            "linear_match": lmc, "utf8_decode": udc}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(m.build, force=True) for m in libs.values()]:
             fut.result()
@@ -3006,6 +3216,7 @@ def main(argv=None) -> int:
     if compare:
         emit_json(stream_compare(compare, card, corpora["en"][0], bert_lines_en,
                                  corpora["en"][2]))
+    utf8_kernel = utf8_phase(card, corpora, goldens, np.random.default_rng(2029))
 
     # ---- 11-12. the word kernel split in two; the word sharded paths -------
     cps_en = [torch.from_numpy(_narrow(m)).to(dev) for m in captured["en"]]
@@ -3063,6 +3274,9 @@ def main(argv=None) -> int:
         {**stream_kernel, "dryrun_launches": dry["match_positions"],
          "harness_launches": hns["match_positions"],
          "stress_launches": stress["match_positions"]},
+        {**utf8_kernel, "launches": fc["launches"]["utf8_count"],
+         "dryrun_launches": dry["utf8_count"],
+         "harness_launches": hns["utf8_count"], "stress_launches": stress["utf8_count"]},
         *({
             "name": name,
             "route": "cuda",

@@ -224,8 +224,10 @@ def test_without_stats_nothing_is_recorded(engine, corpus, monkeypatch):
     np.testing.assert_array_equal(enc.encode_bytes(data), want)
 
 
-# The fast-stream engine: every stage on the caller's thread, once a call.
-STREAM_CALLER = ("host_decode", "host_pad", "stream_h2d", "device_dispatch", "device_fetch")
+# The fast-stream engine: every stage on the caller's thread, once a call;
+# encode_bytes decodes inside stream_h2d (the count) and device_dispatch
+# (the write), so it has no host_decode.
+STREAM_CALLER = ("host_pad", "stream_h2d", "device_dispatch", "device_fetch")
 STREAM_STAGES = ("encode",) + STREAM_CALLER + ("device_wait", "fetch_unpack")
 
 
@@ -249,12 +251,30 @@ def test_stream_stages_of_one_encode(stream_corpus):
         rep = enc.stats.report()
         assert set(rep) == set(STREAM_STAGES) | {"counters"}
         assert all(rep[s]["calls"] == calls for s in STREAM_STAGES)
-        assert rep["encode"]["bytes"] == rep["host_decode"]["bytes"] == calls * len(data)
+        assert rep["encode"]["bytes"] == calls * len(data)
         staged = sum(rep[s]["seconds"] for s in STREAM_CALLER)
         assert staged + rep["encode"]["self_seconds"] == pytest.approx(rep["encode"]["seconds"], rel=0.01)
         assert rep["device_fetch"]["seconds"] >= rep["device_wait"]["seconds"] + rep["fetch_unpack"]["seconds"]
         assert rep["counters"] == {"stream_positions": calls * bucket_size(cps.shape[0]),
-                                   "stream_table_rows": calls * enc.table.slots.shape[0]}
+                                   "stream_table_rows": calls * enc.table.slots.shape[0],
+                                   "stream_card_decoded_bytes": 0}
+
+
+@pytest.mark.parametrize("text", [b"", b"\xff\xfe\x80", "na\u00efve caf\u00e9".encode()],
+                         ids=["empty", "all_invalid", "two_byte"])
+def test_stream_card_decoded_bytes_is_0_on_the_cpu(stream_corpus, text):
+    """The counter is counted once a call of encode_bytes, also where the
+    call has no codepoint, and reads 0 where the plain decode ran."""
+    _, vocab = stream_corpus
+    enc = make_encoder(vocab, "fast-stream", device="cpu")
+    enc.stats = StageStats()
+    cps = uni.decode_utf8(text)
+    np.testing.assert_array_equal(enc.encode_bytes(text), enc.encode_codepoints(cps))
+    rep = enc.stats.report()
+    assert rep["counters"]["stream_card_decoded_bytes"] == 0
+    # encode_bytes counts before it knows the count; encode_codepoints
+    # stages nothing for no codepoint.
+    assert rep["encode"]["calls"] == 2 and rep["stream_h2d"]["calls"] == 1 + bool(cps.size)
 
 
 def test_stream_encode_codepoints_opens_encode_once_and_no_decode(stream_corpus):

@@ -68,6 +68,7 @@ from .ops import match_fast as mf
 from .ops import match_fast_cuda as mfc
 from .ops import text_features as tf
 from .ops import text_features_cuda as tfc
+from .ops import utf8_decode as ud
 from .ops import word_kernel_cuda as wk
 from .parallel.multihost import MultiHostWordEncoder, file_shard_bounds, initialize_distributed
 from .parallel.sharding import (
@@ -89,7 +90,8 @@ KERNELS = {"word_match_commit": wk.word_match_commit_multi, "compact": wk.compac
            "word_match": wk.word_match_packed, "word_commit": wk.word_commit_packed,
            "match_positions": mf.match_positions, "compute_features": tf.compute_features,
            "commit_with_positions": commit_ops.commit_with_positions,
-           "match_from_sa": linear_match.match_from_sa}
+           "match_from_sa": linear_match.match_from_sa,
+           "utf8_count": ud.count_codepoints, "utf8_write": ud.write_codepoints}
 # The stream path's kernels, each once an encode.
 STREAM_KERNELS = ("compute_features", "match_positions", "commit_with_positions")
 
