@@ -1022,7 +1022,7 @@ __device__ __forceinline__ void place_run(int W, const Run& r, int at,
 //    contiguous run of cells, read with consecutive lanes on consecutive
 //    ints.  Entries at or past `cap` are dropped.
 __global__ void __launch_bounds__(kCompactThreads)
-compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
+compact_kernel(const Buckets d, long long n, long long chunk_count, int cap,
                int* __restrict__ fused, int* __restrict__ chunk_sums) {
   __shared__ int2 s_warp[kCompactWarps];
   __shared__ int s_off[kChunkUnits];  // a chunk's exclusive scan
@@ -1044,14 +1044,14 @@ compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
   prefetch_run(r0, lane, pre);
   // ---- phase 1: the chunk sums -------------------------------------------
   if (t == 0 && k0.len) chunk_sums[c0] = sum0;
-  for (long long c = c0 + grid; c < n_chunks; c += grid) {
+  for (long long c = c0 + grid; c < chunk_count; c += grid) {
     const Chunk k = chunk_at(d, c);
     const long long first = d.unit_base[k.b] + k.u;
     block_scan(t < k.len ? counts[first + t] : 0, 0, s_warp, &total, &none);
     if (t == 0) chunk_sums[c] = total;
   }
   cooperative_groups::this_grid().sync();
-  if (n_chunks == 0) {
+  if (chunk_count == 0) {
     if (t == 0) fused[0] = 0;
     return;
   }
@@ -1060,11 +1060,11 @@ compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
   for (long long j = t; j < c0; j += kCompactThreads) part += __ldcg(chunk_sums + j);
   block_scan(0, part, s_warp, &none, &base0);
   long long base = base0;
-  if (c0 == n_chunks - 1 && t == 0) fused[0] = (int)(base + sum0);
+  if (c0 == chunk_count - 1 && t == 0) fused[0] = (int)(base + sum0);
   if (r0.ua < r0.ub)
     place_run(d.width[k0.b], r0, (int)(base + s_off[r0.ua]), pre, cap, dst, lane);
   long long sum = sum0;
-  for (long long c = c0 + grid; c < n_chunks; c += grid) {
+  for (long long c = c0 + grid; c < chunk_count; c += grid) {
     part = 0;  // the chunks from the previous one of this block to this one
     for (long long j = c - grid + 1 + t; j < c; j += kCompactThreads)
       part += __ldcg(chunk_sums + j);
@@ -1075,7 +1075,7 @@ compact_kernel(const Buckets d, long long n, long long n_chunks, int cap,
     if (t < kChunkUnits) s_off[t] = o;
     base += sum + between;
     sum = total;
-    if (c == n_chunks - 1 && t == 0) fused[0] = (int)(base + sum);
+    if (c == chunk_count - 1 && t == 0) fused[0] = (int)(base + sum);
     __syncthreads();
     const Run r = run_of(d, k, w);
     prefetch_run(r, lane, pre);
@@ -1293,9 +1293,9 @@ extern "C" int wp_compact_emits(int n_buckets, void* const* emits, const long lo
   long long n = 0;
   int rc = fill_buckets(&d, n_buckets, nullptr, nullptr, n_units, widths, emits, false, &n);
   if (rc != cudaSuccess) return rc;
-  long long n_chunks = 0;
-  for (int b = 0; b < d.n; ++b) n_chunks += (d.units[b] + kChunkUnits - 1) / kChunkUnits;
-  if (cap < 0 || scratch < n_chunks || reinterpret_cast<uintptr_t>(fused) % 16)
+  long long chunk_count = 0;
+  for (int b = 0; b < d.n; ++b) chunk_count += (d.units[b] + kChunkUnits - 1) / kChunkUnits;
+  if (cap < 0 || scratch < chunk_count || reinterpret_cast<uintptr_t>(fused) % 16)
     return cudaErrorInvalidValue;
   int* out = static_cast<int*>(fused);
   int* sums = static_cast<int*>(chunk_sums);
@@ -1310,8 +1310,8 @@ extern "C" int wp_compact_emits(int n_buckets, void* const* emits, const long lo
   // Co-resident blocks only (a cooperative launch needs them), at most one
   // per chunk.
   long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  blocks = std::max(1LL, std::min(blocks, n_chunks));
-  void* args[] = {&d, &n, &n_chunks, &cap, &out, &sums};
+  blocks = std::max(1LL, std::min(blocks, chunk_count));
+  void* args[] = {&d, &n, &chunk_count, &cap, &out, &sums};
   rc = cudaLaunchCooperativeKernel((const void*)compact_kernel, dim3((unsigned)blocks),
                                    dim3(kCompactThreads), args, 0, s);
   if (rc != cudaSuccess) return rc;

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .core import unicode as uni
-from .core.length_tables import LengthTables, build_length_tables, load_length_tables
+from .core.length_tables import build_length_tables, load_length_tables
 from .core.vocab import Vocabulary
 from .ops import word_kernel_cuda as wk
 from .runtime import loader
@@ -159,10 +159,8 @@ class WordEncoder:
     def __init__(
         self,
         vocab: Vocabulary,
-        tables: LengthTables | None = None,
         *,
         device="cuda",
-        verify: bool = True,
         cache: bool = False,
         device_role: str = "primary",
     ):
@@ -178,13 +176,13 @@ class WordEncoder:
         number of distinct units ever seen (~bytes of unique text); call
         reset_cache() to drop it.
 
-        verify=True (default) cross-checks every emitted token's string
-        against the vocabulary on host (cheap: only unique units) and
-        re-encodes any mismatching unit with the native scalar oracle.
-        This catches any hash collision that surfaces as an emitted
-        token; the residual risk (a collision at a never-emitted position
-        perturbing only UNK placement) stays at ~2^-64 per probe.
-        Repaired units are counted in self.verify_repairs.
+        Every emitted token's string is checked against the vocabulary
+        on the host (cheap: only unique units), and a mismatching unit is
+        re-encoded with the native scalar oracle.  This catches any hash
+        collision that surfaces as an emitted token; the residual risk (a
+        collision at a never-emitted position perturbing only UNK
+        placement) stays at ~2^-64 per probe.  Repaired units are counted
+        in self.verify_repairs.
 
         device_role:
           - "primary" (default): a device fetch blocks until the result
@@ -211,9 +209,8 @@ class WordEncoder:
             )
         self.device = resolve_device(device)
         self.vocab = vocab
-        self.verify = verify
         self._padded_vocab = None  # lazy (packed strings for verification)
-        self.tables = tables if tables is not None else build_length_tables(vocab)
+        self.tables = build_length_tables(vocab)
         self._stream = None
         if self.device.type == "cuda":
             wk.build()
@@ -320,16 +317,7 @@ class WordEncoder:
         re-encoded by the scalar oracle."""
         bad = loader.verify_emit(mat, emit, self.vocab, self._unk_id)
         if bad is not None:
-            if bad.size:  # pragma: no cover - requires a hash collision
-                self.verify_repairs += int(bad.size)
-                emit = emit.copy()
-                for r in bad.tolist():
-                    row = mat[r]
-                    cps = row[row != 32].astype(np.uint32)
-                    ids = self._scalar.encode(cps)
-                    emit[r, :] = -2
-                    emit[r, : ids.shape[0]] = ids
-            return emit
+            return self._repair_rows(mat, emit, bad.tolist())
         if self._padded_vocab is None:
             self._padded_vocab = self.vocab.padded(width=max(self.vocab.max_len, 1))
         padded, plens = self._padded_vocab
@@ -359,15 +347,20 @@ class WordEncoder:
                 mism = act & ((got != want) | (jj_c + k >= W))
                 if mism.any():
                     bad_rows.update(rr_c[mism].tolist())
-        if bad_rows:  # pragma: no cover - requires a hash collision
-            self.verify_repairs += len(bad_rows)
-            emit = emit.copy()
-            for r in bad_rows:
-                row = mat[r]
-                cps = row[row != 32].astype(np.uint32)
-                ids = self._scalar.encode(cps)
-                emit[r, :] = -2
-                emit[r, : ids.shape[0]] = ids
+        return self._repair_rows(mat, emit, bad_rows)
+
+    def _repair_rows(self, mat: np.ndarray, emit: np.ndarray, rows) -> np.ndarray:
+        """`emit`, or a copy with `rows` re-encoded by the scalar oracle
+        (counted in verify_repairs)."""
+        if not rows:
+            return emit
+        self.verify_repairs += len(rows)
+        emit = emit.copy()
+        for r in rows:
+            row = mat[r]
+            ids = self._scalar.encode(row[row != 32].astype(np.uint32))
+            emit[r, :] = -2
+            emit[r, : ids.shape[0]] = ids
         return emit
 
     # Pipelined chunking over a persistent dedupe session: occurrence ids
@@ -383,13 +376,6 @@ class WordEncoder:
     # still segmenting the body.
     PIPELINE_FIRST = 1_000_000
     PIPELINE_WINDOW = 4  # max chunks in flight (bounds host memory)
-
-    # Lockstep mode (multi-process SPMD): when True, EVERY chunk enters
-    # the device program — even chunks with zero or few new units that
-    # the single-process path would skip or encode on the host scalar.
-    # A multi-process device step is a collective: all processes must
-    # enter it the same number of times, or the job deadlocks.
-    lockstep_dispatch = False
 
     def reset_cache(self) -> None:
         """Drop the persistent unit cache (cache=True encoders)."""
@@ -416,15 +402,13 @@ class WordEncoder:
         self.stats.count("units_card", n_card)
         self.stats.count("units_host", n_new - n_card)
 
-    def encode_bytes(self, data: bytes, *, n_chunks: int | None = None) -> np.ndarray:
-        """Encode a byte corpus.  `n_chunks` forces the pipeline to split
-        into EXACTLY that many chunks (trailing chunks may be empty) —
-        the multi-process lockstep contract (see lockstep_dispatch)."""
+    def encode_bytes(self, data: bytes) -> np.ndarray:
+        """Encode a byte corpus."""
         with self._stage("encode", len(data)):
-            return self._encode_bytes(data, n_chunks)
+            return self._encode_bytes(data)
 
-    def _encode_bytes(self, data: bytes, n_chunks: int | None) -> np.ndarray:
-        if len(data) == 0 and not (self.lockstep_dispatch and n_chunks):
+    def _encode_bytes(self, data: bytes) -> np.ndarray:
+        if len(data) == 0:
             return np.zeros(0, dtype=np.int32)
         if self.cache:
             # Persistent vocabulary session: the unit table and token
@@ -439,7 +423,7 @@ class WordEncoder:
             store = _TokenStore()
             first = True
         try:
-            if (n_chunks is None or n_chunks <= 1) and len(data) <= self.PIPELINE_CHUNK:
+            if len(data) <= self.PIPELINE_CHUNK:
                 return self._finish_chunk(
                     data, self._prepare_chunk(data, session, first), store
                 )
@@ -452,28 +436,14 @@ class WordEncoder:
                 chunks = []
                 begin = 0
                 n = len(data)
-                if n_chunks is not None:
-                    # Exactly n_chunks chunks (lockstep); tail may be empty.
-                    target = max(1, -(-n // n_chunks))
-                    for ci in range(n_chunks):
-                        if ci == n_chunks - 1:
-                            end = n
-                        else:
-                            end = min(n, begin + target)
-                            if end < n:
-                                cut = find_space_cut(data, end)
-                                end = cut if cut >= 0 else n
-                        chunks.append(data[begin:end])
-                        begin = end
-                else:
-                    while begin < n:
-                        step = self.PIPELINE_FIRST if begin == 0 else self.PIPELINE_CHUNK
-                        end = min(n, begin + step)
-                        if end < n:
-                            cut = find_space_cut(data, end)
-                            end = cut if cut >= 0 else n
-                        chunks.append(data[begin:end])
-                        begin = end
+                while begin < n:
+                    step = self.PIPELINE_FIRST if begin == 0 else self.PIPELINE_CHUNK
+                    end = min(n, begin + step)
+                    if end < n:
+                        cut = find_space_cut(data, end)
+                        end = cut if cut >= 0 else n
+                    chunks.append(data[begin:end])
+                    begin = end
             if self._executor is None:
                 from concurrent.futures import ThreadPoolExecutor
 
@@ -527,8 +497,7 @@ class WordEncoder:
     # Units of <= this many codepoints are encoded by the native scalar
     # oracle even in device-dispatching chunks: a 1-2 cp unit's MaxMatch is
     # one or two host hash probes, and CJK corpora are dominated by such
-    # units.  Disabled in lockstep mode (the split is data-dependent;
-    # collective entry counts must not be).
+    # units.
     SCALAR_SMALL_CPLEN = 2
 
     # device_role="auto": give up on a device fetch after this long (raise
@@ -554,27 +523,14 @@ class WordEncoder:
         host-encoded batches (already in uid order, no device fetch)."""
         with self._stage("host_segment_dedupe", len(data)):
             occ, nstart, nlen, ncplen = session.segment(data)
-        if nstart.shape[0] == 0 and not self.lockstep_dispatch:
+        if nstart.shape[0] == 0:
             return (occ, None, None, None, None, None, None, None)
-        if self._device_dead and not self.lockstep_dispatch:
-            # Device latched dead (DEVICE_DEAD_AFTER consecutive rescues):
-            # stay on the host oracle, don't pay another timeout.
-            with self._stage("host_scalar_units"):
-                flat, counts = self._scalar.encode_units(
-                    data, nstart, nlen, int(ncplen.sum())
-                )
-            if self.stats is not None:
-                self._count_units(nstart.shape[0], 0)
-            return (occ, nstart, nlen, None, None, None, ("scalar", flat, counts), None)
-        if (
-            not first
-            and not self.lockstep_dispatch
-            and nstart.shape[0] <= self.SCALAR_MAX_NEW
-        ):
-            with self._stage("host_scalar_units"):
-                flat, counts = self._scalar.encode_units(
-                    data, nstart, nlen, int(ncplen.sum())
-                )
+        # The whole batch goes to the host oracle when the device is
+        # latched dead (DEVICE_DEAD_AFTER consecutive rescues: don't pay
+        # another timeout) or, after the session's first chunk, when the
+        # batch is small (SCALAR_MAX_NEW).
+        if self._device_dead or (not first and nstart.shape[0] <= self.SCALAR_MAX_NEW):
+            flat, counts = self._encode_on_host(data, nstart, nlen, int(ncplen.sum()))
             if self.stats is not None:
                 self._count_units(nstart.shape[0], 0)
             return (occ, nstart, nlen, None, None, None, ("scalar", flat, counts), None)
@@ -582,19 +538,14 @@ class WordEncoder:
         # oracle; the device sees only the multi-char units.
         small = None
         big_idx = None
-        if not self.lockstep_dispatch:
-            sel = ncplen <= self.SCALAR_SMALL_CPLEN
-            if sel.any():
-                small_idx = np.nonzero(sel)[0]
-                with self._stage("host_scalar_units"):
-                    sflat, scounts = self._scalar.encode_units(
-                        data,
-                        nstart[small_idx],
-                        nlen[small_idx],
-                        int(ncplen[small_idx].sum()),
-                    )
-                small = (small_idx, sflat, scounts.astype(np.int64))
-                big_idx = np.nonzero(~sel)[0]
+        sel = ncplen <= self.SCALAR_SMALL_CPLEN
+        if sel.any():
+            small_idx = np.nonzero(sel)[0]
+            sflat, scounts = self._encode_on_host(
+                data, nstart[small_idx], nlen[small_idx], int(ncplen[small_idx].sum())
+            )
+            small = (small_idx, sflat, scounts.astype(np.int64))
+            big_idx = np.nonzero(~sel)[0]
         with self._stage("host_bucket_fill"):
             if big_idx is None:
                 mats, bucket_of, row_of = loader.bucket_fill(
@@ -618,6 +569,13 @@ class WordEncoder:
         with self._stage("device_dispatch"):
             handle = self._dispatch_buckets(mats)
         return (occ, nstart, nlen, mats, bucket_of, row_of, handle, small)
+
+    def _encode_on_host(self, data: bytes, nstart, nlen, cap: int):
+        """The host route: the native scalar oracle encodes the units at
+        data[nstart : nstart + nlen] -> (flat ids, counts per unit); `cap`
+        bounds their total codepoint length."""
+        with self._stage("host_scalar_units"):
+            return self._scalar.encode_units(data, nstart, nlen, cap)
 
     def _finish_chunk(self, data: bytes, state, store: _TokenStore) -> np.ndarray:
         """Fetch device results for one chunk's NEW units, verify, stitch
@@ -681,19 +639,16 @@ class WordEncoder:
                         n_card = sum(m.shape[0] for m in mats)
                         self.stats.count("units_card", -n_card)
                         self.stats.count("units_host", n_card)
-                    with self._stage("host_scalar_units"):
-                        flat, counts = self._scalar.encode_units(
-                            data, nstart, nlen, int(nlen.sum())
-                        )
+                    # Byte lengths bound the codepoint total.
+                    flat, counts = self._encode_on_host(data, nstart, nlen, int(nlen.sum()))
                     store.append(flat, counts.astype(np.int64))
                     return
             else:
                 emits = self._fetch_buckets(handle)
-        if self.verify:
-            with self._stage("host_verify"):
-                for b, mat in enumerate(mats):
-                    if mat.shape[0]:
-                        emits[b] = self._verify_emit(mat, emits[b])
+        with self._stage("host_verify"):
+            for b, mat in enumerate(mats):
+                if mat.shape[0]:
+                    emits[b] = self._verify_emit(mat, emits[b])
         with self._stage("host_stitch"):
             order_flat, counts_u = self._emits_to_uid_flat(
                 data, nstart, nlen, mats, bucket_of, row_of, emits, small

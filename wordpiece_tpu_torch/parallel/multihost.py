@@ -19,8 +19,8 @@ Where this differs from the JAX package: there the device step is one
 shard_map program over a mesh of every process's devices, which is a
 collective, so every process must enter it with the same shapes and the
 same number of times.  That forces the per-bucket row agreement by
-all-gathered max (JAX multihost.py:229), lockstep_dispatch (a dispatch
-for every chunk) and the n_chunks agreement by max (:285-289).  In the
+all-gathered max (JAX multihost.py:229), a device dispatch for every
+chunk, and the agreement on the chunk count by max (:285-289).  In the
 port each process's units run on its own card and its own stream, so the
 device step has no collective, and all three are dropped: each process's
 pipeline chunks, routes small batches to the host oracle and dispatches as

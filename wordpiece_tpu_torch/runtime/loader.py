@@ -23,9 +23,41 @@ _DIR = os.path.join(os.path.dirname(__file__), "native")
 _SO = os.path.join(
     _DIR, os.environ.get("WORDPIECE_TPU_TORCH_NATIVE_SO", "libwordpiece_host.so")
 )
+_SOURCES = (os.path.join(_DIR, "wordpiece_host.cc"), os.path.join(_DIR, "Makefile"))
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
+
+
+def is_stale(library: str, sources) -> bool:
+    """Whether `library` is missing or older than one of `sources` (file
+    times, the rule of ops/cuda_build.is_stale)."""
+    if not os.path.exists(library):
+        return True
+    built = os.path.getmtime(library)
+    return any(os.path.getmtime(p) > built for p in sources)
+
+
+def ensure_built(directory: str, library: str, sources) -> bool:
+    """Run `make <library>` in `directory` when the library is stale;
+    returns whether a library is there afterwards.  Where make fails, an
+    older library that exists is kept.  Other processes (test workers) may
+    build or load at the same moment: an exclusive lock on the directory's
+    Makefile serialises the check and the build, and the Makefile links to
+    a temporary name and renames it into place, so no process loads a
+    half-linked library or loses the one it has mapped."""
+    with open(os.path.join(directory, "Makefile")) as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if is_stale(library, sources):
+            try:
+                subprocess.run(
+                    ["make", "-C", directory, "-s", os.path.basename(library)],
+                    capture_output=True,
+                    timeout=300,
+                )
+            except (OSError, subprocess.SubprocessError):
+                pass  # no make, or a hung build: keep what is there
+        return os.path.exists(library)
 
 
 def _load():
@@ -35,22 +67,8 @@ def _load():
             return _LIB
         _TRIED = True
         try:
-            # Other processes (test workers) may build at the same moment:
-            # an exclusive lock on the Makefile serialises the check and the
-            # build, so no process loads a half-linked library.
-            with open(os.path.join(_DIR, "Makefile")) as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                if not os.path.exists(_SO):
-                    subprocess.run(
-                        ["make", "-C", _DIR, "-s"],
-                        check=True,
-                        capture_output=True,
-                        timeout=120,
-                    )
-        except Exception:
-            _LIB = None
-            return None
-        try:
+            if not ensure_built(_DIR, _SO, _SOURCES):
+                return None
             lib = ctypes.CDLL(_SO)
         except OSError:
             _LIB = None
@@ -62,40 +80,6 @@ def _load():
             ctypes.c_int64,
             ctypes.c_void_p,
         ]
-        lib.wp_char_classes.restype = None
-        lib.wp_char_classes.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.wp_encode_scalar.restype = ctypes.c_int64
-        lib.wp_encode_scalar.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_int32,
-            ctypes.c_void_p,
-        ]
-        lib.wp_split_whitespace.restype = None
-        lib.wp_split_whitespace.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p,
-        ]
-        lib.wp_segment_dedupe.restype = ctypes.c_int64
-        lib.wp_segment_dedupe.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
-        # (data, size, occ, uniq_start, uniq_len, uniq_cplen, n_unique_out)
-        lib.wp_segment_dedupe.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.wp_segment_dedupe_mt.restype = ctypes.c_int64
-        lib.wp_segment_dedupe_mt.argtypes = lib.wp_segment_dedupe.argtypes + [ctypes.c_int32]
         lib.wp_bucket_fill.restype = None
         lib.wp_bucket_fill.argtypes = [
             ctypes.c_void_p,
@@ -247,18 +231,6 @@ def decode_utf8(data: bytes) -> np.ndarray | None:
     return out[:n].copy()
 
 
-def char_classes(cp: np.ndarray) -> np.ndarray | None:
-    lib = _load()
-    if lib is None:
-        return None
-    cp = np.ascontiguousarray(cp, dtype=np.uint32)
-    out = np.empty(cp.shape[0], dtype=np.uint8)
-    lib.wp_char_classes(
-        cp.ctypes.data_as(ctypes.c_void_p), cp.shape[0], out.ctypes.data_as(ctypes.c_void_p)
-    )
-    return out
-
-
 def pack_vocab(vocab) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vocabulary -> (words_flat u32, offsets i64[v+1], flags u8[v])."""
     flat = np.ascontiguousarray(vocab.flat, dtype=np.uint32)
@@ -268,27 +240,6 @@ def pack_vocab(vocab) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         | ((vocab.is_special | vocab.is_malformed).astype(np.uint8) << 1)
     )
     return flat, offsets, flags
-
-
-def encode_scalar(text_cp: np.ndarray, vocab) -> np.ndarray | None:
-    """Native golden encoder; None if the library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    flat, offsets, flags = pack_vocab(vocab)
-    cp = np.ascontiguousarray(text_cp, dtype=np.uint32)
-    out = np.empty(cp.shape[0] + 1, dtype=np.int32)
-    n = lib.wp_encode_scalar(
-        cp.ctypes.data_as(ctypes.c_void_p),
-        cp.shape[0],
-        flat.ctypes.data_as(ctypes.c_void_p),
-        offsets.ctypes.data_as(ctypes.c_void_p),
-        flags.ctypes.data_as(ctypes.c_void_p),
-        vocab.size,
-        np.int32(vocab.unk_token_id),
-        out.ctypes.data_as(ctypes.c_void_p),
-    )
-    return out[:n].copy()
 
 
 def segment_dedupe(data: bytes):
@@ -570,17 +521,3 @@ class VocabHandle:
         except Exception:
             pass
 
-
-def split_whitespace(cp: np.ndarray, n_shards: int) -> np.ndarray | None:
-    lib = _load()
-    if lib is None:
-        return None
-    cp = np.ascontiguousarray(cp, dtype=np.uint32)
-    ends = np.empty(n_shards, dtype=np.int64)
-    lib.wp_split_whitespace(
-        cp.ctypes.data_as(ctypes.c_void_p),
-        cp.shape[0],
-        n_shards,
-        ends.ctypes.data_as(ctypes.c_void_p),
-    )
-    return ends

@@ -1,24 +1,33 @@
-// Native host runtime for wordpiece_tpu.
+// Native host runtime of wordpiece_tpu_torch (the PyTorch/CUDA port).
 //
-// TPU-native framework host layer: the pieces that must run on the host
-// CPU at memory bandwidth — UTF-8 corpus decode, whitespace-safe shard
-// splitting, vocab line parsing, and a scalar reference encoder used as
-// the production fallback / golden oracle for big inputs.  Counterpart of
-// the reference's src/third_party/utf8.cpp + src/utils.cpp roles, written
-// from the semantics (see SURVEY.md §2 C4/C6), not translated.
+// The host passes of the fast word engine (engine_word.py) and the linear
+// engine (engine_linear.py) that run on the CPU at memory bandwidth:
+//   - UTF-8 decode (wp_decode_utf8);
+//   - unit segmentation and cross-chunk dedupe (wp_dedupe_session_*);
+//   - filling unique units into width buckets (wp_bucket_fill) and the
+//     linear engine's space-joined batches (wp_join_units_cps);
+//   - expansion of per-unit token lists to the occurrence stream
+//     (wp_expand_total, wp_expand, wp_expand_mt);
+//   - the emitted-token check against the vocabulary (wp_verify_emit);
+//   - the scalar MaxMatch encoder behind a prebuilt vocabulary handle
+//     (wp_vocab_new/free, wp_encode_with, wp_encode_units_with): the host
+//     route for small batches and the oracle the engines are held to.
+// Counterpart of the reference's src/third_party/utf8.cpp + src/utils.cpp
+// roles, written from the semantics (see SURVEY.md §2 C4/C6), not
+// translated.
 //
-// Exposed as a C ABI for ctypes (no pybind11 in this environment).
+// Exposed as a C ABI for ctypes (runtime/loader.py; no pybind11).
 //
-// Build: make -C wordpiece_tpu/runtime/native
+// Build: make -C wordpiece_tpu_torch/runtime/native (the loader runs it
+// when the library is missing or older than this file or the Makefile).
+// Forced-scalar A/B and ASan+UBSan runs: tests/test_torch_native_sanitize.py.
 
 #include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
-#include <memory>
 #include <mutex>
-#include <string>
 #include <thread>
 #include <unordered_map>
 #include <vector>
@@ -195,113 +204,13 @@ int64_t wp_decode_utf8(const uint8_t* data, int64_t size, uint32_t* out) {
   return n;
 }
 
-// Per-codepoint class flags: 1=space 2=punct 4=chinese (bitmask).
-void wp_char_classes(const uint32_t* cp, int64_t n, uint8_t* out) {
-  for (int64_t i = 0; i < n; i++) {
-    uint8_t f = 0;
-    if (is_space_cp(cp[i])) f |= 1;
-    if (is_punct_cp(cp[i])) f |= 2;
-    if (is_chinese_cp(cp[i])) f |= 4;
-    out[i] = f;
-  }
-}
-
-// Scalar greedy MaxMatch encoder (reference worker semantics,
-// src/fast.cpp:43-99).  Vocab passed as packed arrays:
-//   words: concatenated codepoints; offsets: int64[v+1];
-//   flags: per-token bitmask 1=is_prefix 2=skip(special|malformed).
-// Returns the number of ids written to out (cap >= n + 1).
-int64_t wp_encode_scalar(const uint32_t* text, int64_t n,
-                         const uint32_t* words, const int64_t* offsets,
-                         const uint8_t* flags, int64_t vocab_size,
-                         int32_t unk_id, int32_t* out) {
-  std::unordered_map<Key, int32_t, KeyHash> prefix_map, suffix_map;
-  int64_t max_len = 0;
-  for (int64_t i = 0; i < vocab_size; i++) {
-    if (flags[i] & 2) continue;
-    Key k{words + offsets[i], static_cast<int32_t>(offsets[i + 1] - offsets[i])};
-    int64_t len = k.len;
-    if (len > max_len) max_len = len;
-    if (flags[i] & 1)
-      prefix_map[k] = static_cast<int32_t>(i);
-    else
-      suffix_map[k] = static_cast<int32_t>(i);
-  }
-  if (max_len > n) max_len = n;
-
-  auto is_word_prefix = [&](int64_t i) {
-    return i == 0 || is_spacing_cp(text[i]) || is_spacing_cp(text[i - 1]);
-  };
-
-  int64_t count = 0;
-  int64_t begin = 0;
-  const int64_t end = n;
-  while (begin != end && is_space_cp(text[begin])) begin++;
-
-  int64_t tokens_since_prefix = 0;
-  while (begin != end) {
-    int64_t word_len = 1;
-    if (!is_punct_cp(text[begin])) {
-      int64_t cap = std::min(max_len, end - begin);
-      while (word_len < cap && !is_spacing_cp(text[begin + word_len])) word_len++;
-    }
-
-    auto& map = is_word_prefix(begin) ? prefix_map : suffix_map;
-    int64_t matched = 0;
-    for (int64_t len = word_len; len >= 1; len--) {
-      Key k{text + begin, static_cast<int32_t>(len)};
-      auto it = map.find(k);
-      if (it != map.end()) {
-        tokens_since_prefix++;
-        out[count++] = it->second;
-        begin += len;
-        matched = len;
-        break;
-      }
-    }
-
-    if (matched == 0) {
-      count -= tokens_since_prefix;
-      tokens_since_prefix = 0;
-      out[count++] = unk_id;
-      begin += word_len;
-      while (begin != end && !is_word_prefix(begin)) begin++;
-    } else if (begin != end && is_word_prefix(begin)) {
-      tokens_since_prefix = 0;
-    }
-
-    while (begin != end && is_space_cp(text[begin])) begin++;
-  }
-  return count;
-}
-
-// Whitespace-safe shard boundaries over a codepoint array: fills
-// ends[0..n_shards) with chunk end indices (reference chunk snapping,
-// src/fast.cpp:113-115).
-void wp_split_whitespace(const uint32_t* cp, int64_t n, int64_t n_shards,
-                         int64_t* ends) {
-  int64_t base = n / n_shards + (n % n_shards ? 1 : 0);
-  int64_t begin = 0;
-  for (int64_t s = 0; s < n_shards; s++) {
-    if (begin >= n) {
-      ends[s] = n;
-      continue;
-    }
-    int64_t e = begin + base;
-    if (e > n) e = n;
-    while (e < n && !is_space_cp(cp[e])) e++;
-    ends[s] = e;
-    begin = e;
-  }
-}
-
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
 // Unit segmentation + dedupe (the word-centric fast path's host side).
 //
 // A "unit" is an independently tokenizable span (proof in SURVEY-cited
-// semantics; see wordpiece_tpu/engine_word.py):
+// semantics; see engine_word.py's module docstring):
 //   - spaces are skipped and never emitted;
 //   - a punctuation char is a unit by itself (probe window 1);
 //   - a CJK char merges with the following run of non-spacing chars
@@ -312,38 +221,6 @@ void wp_split_whitespace(const uint32_t* cp, int64_t n, int64_t n_shards,
 // at unit granularity (Zipf => ~10x less device work).
 // ---------------------------------------------------------------------------
 
-namespace {
-
-struct UnitKey {
-  const uint8_t* p;
-  int32_t len;
-  bool operator==(const UnitKey& o) const {
-    return len == o.len && std::memcmp(p, o.p, static_cast<size_t>(len)) == 0;
-  }
-};
-struct UnitKeyHash {
-  size_t operator()(const UnitKey& k) const {
-    uint64_t h = 1469598103934665603ull;
-    for (int32_t i = 0; i < k.len; i++) {
-      h ^= k.p[i];
-      h *= 1099511628211ull;
-    }
-    return static_cast<size_t>(h);
-  }
-};
-
-}  // namespace
-
-extern "C" {
-
-// Segment `data` into units and dedupe them.
-// Outputs:
-//   occ_unique[n_occ]   unique index per unit occurrence (corpus order)
-//   uniq_start[n_uniq]  byte offset of the unique unit's first occurrence
-//   uniq_len[n_uniq]    byte length
-//   uniq_cplen[n_uniq]  decoded codepoint count
-// Returns n_occ; *n_unique_out = n_uniq.  Buffers must hold `size`
-// entries (worst case: every byte its own unit).
 namespace {
 
 // Byte classifier for the ASCII fast path: 0 = plain word byte (or UTF-8
@@ -443,13 +320,6 @@ inline bool unit_eq(const uint8_t* a, const uint8_t* b, int32_t len) {
     if (a[i] != b[i]) return false;
   }
   return true;
-}
-
-// unit_eq for len < 8 when BOTH pointers have >= 8 readable bytes (callers
-// check their buffer ends): one masked 8-byte compare, no per-byte loop.
-inline bool unit_eq8(const uint8_t* a, const uint8_t* b, int32_t len) {
-  const uint64_t m = ~0ull >> ((8 - len) * 8);
-  return ((load64(a) ^ load64(b)) & m) == 0;
 }
 
 // Hash the unit bytes at data[start .. start+len).  Word-at-a-time (the
@@ -806,191 +676,6 @@ inline bool scan_unit(const uint8_t* data, int64_t size, const ClassMasks& cm,
 
 }  // namespace
 
-int64_t wp_segment_dedupe(const uint8_t* data, int64_t size,
-                          int32_t* occ_unique, int64_t* uniq_start,
-                          int32_t* uniq_len, int32_t* uniq_cplen,
-                          int64_t* n_unique_out) {
-  thread_local ClassMasks cm;
-  build_class_masks(data, size, &cm);
-  thread_local DedupeTable seen(1 << 16);
-  seen.reset(1 << 16);
-  int64_t n_occ = 0;
-  int64_t n_uniq = 0;
-
-  // Batched software pipeline: scan+hash a block of units (prefetching
-  // each unit's table slot as its hash lands), THEN probe the block.
-  // The prefetch-to-probe distance is a whole block of scan work, so the
-  // probe's L2/L3 miss is fully overlapped (the old 1-deep pipeline gave
-  // it only one unit's scan time).
-  constexpr int B = 64;
-  int64_t bs[B];
-  int32_t bl[B], bcp[B];
-  uint64_t bh[B];
-  ScanCur cur;
-  bool done = false;
-  while (!done) {
-    int nb = 0;
-    while (nb < B) {
-      int64_t start;
-      int32_t klen, cplen;
-      if (!scan_unit(data, size, cm, &cur, &start, &klen, &cplen)) {
-        done = true;
-        break;
-      }
-      const uint64_t h = hash_unit(data, start, klen, size);
-      __builtin_prefetch(&seen.t[static_cast<size_t>(h) & seen.mask]);
-      bs[nb] = start;
-      bl[nb] = klen;
-      bcp[nb] = cplen;
-      bh[nb] = h;
-      nb++;
-    }
-    for (int k = 0; k < nb; k++) {
-      const uint64_t h = bh[k];
-      const int64_t start = bs[k];
-      const int32_t klen = bl[k];
-      const bool f8 = klen < 8 && start + 8 <= size;
-      size_t b = static_cast<size_t>(h) & seen.mask;
-      int32_t uid = -1;
-      while (seen.t[b].uid >= 0) {
-        if (seen.t[b].hash == h) {
-          const int32_t cand = seen.t[b].uid;
-          if (uniq_len[cand] == klen &&
-              ((f8 && uniq_start[cand] + 8 <= size)
-                   ? unit_eq8(data + uniq_start[cand], data + start, klen)
-                   : unit_eq(data + uniq_start[cand], data + start, klen))) {
-            uid = cand;
-            break;
-          }
-        }
-        b = (b + 1) & seen.mask;
-      }
-      if (uid < 0) {
-        uid = static_cast<int32_t>(n_uniq);
-        uniq_start[n_uniq] = start;
-        uniq_len[n_uniq] = klen;
-        uniq_cplen[n_uniq] = bcp[k];
-        n_uniq++;
-        seen.t[b].hash = h;
-        seen.t[b].uid = uid;
-        if (static_cast<size_t>(n_uniq) * 2 > seen.mask) seen.grow();
-      }
-      occ_unique[n_occ++] = uid;
-    }
-  }
-  *n_unique_out = n_uniq;
-  return n_occ;
-}
-
-// Multithreaded segment+dedupe: split at an ASCII space near the middle,
-// run wp_segment_dedupe per half in parallel (ctypes releases the GIL),
-// then merge the second half's unique table into the first (remapping its
-// occurrence ids).  Unit streams concatenate exactly across space-snapped
-// splits, so the result is identical to the single-threaded call.
-int64_t wp_segment_dedupe_mt(const uint8_t* data, int64_t size,
-                             int32_t* occ_unique, int64_t* uniq_start,
-                             int32_t* uniq_len, int32_t* uniq_cplen,
-                             int64_t* n_unique_out, int32_t n_threads) {
-  if (n_threads < 2 || size < (1 << 20)) {
-    return wp_segment_dedupe(data, size, occ_unique, uniq_start, uniq_len,
-                             uniq_cplen, n_unique_out);
-  }
-  // Split point: the first space-class cut at-or-after the middle.  Any
-  // ASCII whitespace byte is a complete one-byte space codepoint, and
-  // 0xE2 0x96 0x81 is U+2581 (also a space); a continuation byte can
-  // match neither, so scanning from an arbitrary byte offset is safe.
-  // (0x20-only scanning would degrade newline-separated corpora to ONE
-  // half — correct output, no host parallelism.)
-  const auto is_space_cut = [&](int64_t i) {
-    const uint8_t c = data[i];
-    if (c == 0x20 || (c >= 9 && c <= 13)) return true;
-    return c == 0xE2 && i + 2 < size && data[i + 1] == 0x96 &&
-           data[i + 2] == 0x81;
-  };
-  int64_t mid = size / 2;
-  while (mid < size && !is_space_cut(mid)) mid++;
-  if (mid >= size) {
-    return wp_segment_dedupe(data, size, occ_unique, uniq_start, uniq_len,
-                             uniq_cplen, n_unique_out);
-  }
-
-  // Reused scratch for the second half (fresh allocations page-fault on
-  // every pipeline chunk; reuse keeps the pages warm).
-  const size_t cap2 = static_cast<size_t>(size - mid);
-  static thread_local std::vector<int32_t> occ2_v, ul2_v, ucp2_v;
-  static thread_local std::vector<int64_t> us2_v;
-  if (occ2_v.size() < cap2) {
-    occ2_v.resize(cap2);
-    ul2_v.resize(cap2);
-    ucp2_v.resize(cap2);
-    us2_v.resize(cap2);
-  }
-  int32_t* occ2 = occ2_v.data();
-  int64_t* us2 = us2_v.data();
-  int32_t* ul2 = ul2_v.data();
-  int32_t* ucp2 = ucp2_v.data();
-  int64_t n_occ2 = 0, n_uniq2 = 0;
-
-  // thread_local: each calling thread owns its worker's job/done state
-  // machine, so concurrent wp_segment_dedupe_mt calls from different
-  // Python threads (ctypes releases the GIL) can never interleave run()
-  // and wait() on shared state.
-  static thread_local HalfWorker worker;
-  worker.run([&] {
-    n_occ2 = wp_segment_dedupe(data + mid, size - mid, occ2, us2,
-                               ul2, ucp2, &n_uniq2);
-  });
-  int64_t n_uniq1 = 0;
-  int64_t n_occ1 = wp_segment_dedupe(data, mid, occ_unique, uniq_start,
-                                     uniq_len, uniq_cplen, &n_uniq1);
-  worker.wait();
-
-  // Merge: map half-2 unique ids into the global table.
-  size_t cap = 1;
-  while (cap < static_cast<size_t>(2 * (n_uniq1 + n_uniq2) + 1)) cap <<= 1;
-  DedupeTable seen(cap);
-  for (int64_t u = 0; u < n_uniq1; u++) {
-    uint64_t h = hash_unit(data, uniq_start[u], uniq_len[u], size);
-    size_t b = static_cast<size_t>(h) & seen.mask;
-    while (seen.t[b].uid >= 0) b = (b + 1) & seen.mask;
-    seen.t[b].hash = h;
-    seen.t[b].uid = static_cast<int32_t>(u);
-  }
-  int64_t n_uniq = n_uniq1;
-  std::vector<int32_t> remap(static_cast<size_t>(n_uniq2));
-  for (int64_t u = 0; u < n_uniq2; u++) {
-    const uint8_t* p = data + mid + us2[u];
-    const int32_t len = ul2[u];
-    const uint64_t h = hash_unit(data, mid + us2[u], len, size);
-    size_t b = static_cast<size_t>(h) & seen.mask;
-    int32_t found = -1;
-    while (seen.t[b].uid >= 0) {
-      const int32_t cand = seen.t[b].uid;
-      if (seen.t[b].hash == h && uniq_len[cand] == len &&
-          std::memcmp(data + uniq_start[cand], p, static_cast<size_t>(len)) == 0) {
-        found = cand;
-        break;
-      }
-      b = (b + 1) & seen.mask;
-    }
-    if (found < 0) {
-      found = static_cast<int32_t>(n_uniq);
-      uniq_start[n_uniq] = mid + us2[u];
-      uniq_len[n_uniq] = len;
-      uniq_cplen[n_uniq] = ucp2[u];
-      n_uniq++;
-      seen.t[b].hash = h;
-      seen.t[b].uid = found;
-    }
-    remap[static_cast<size_t>(u)] = found;
-  }
-  for (int64_t i = 0; i < n_occ2; i++) {
-    occ_unique[n_occ1 + i] = remap[static_cast<size_t>(occ2[static_cast<size_t>(i)])];
-  }
-  *n_unique_out = n_uniq;
-  return n_occ1 + n_occ2;
-}
-
 // --- Persistent dedupe session (cross-chunk pipelining) -------------------
 //
 // The windowed encode pipeline segments the corpus in ~MB chunks so host
@@ -1123,8 +808,8 @@ inline int32_t single_cp(const uint8_t* p, int32_t klen) {
 // read-only on the session table, so two halves run concurrently.  This
 // is the session fast path: for steady-state pipeline chunks (Zipf: new
 // units are rare) occurrence ids are final immediately — no chunk-local
-// table, no re-hash, no full-occurrence remap pass (the old path paid
-// all three; see wp_segment_dedupe_mt's merge for the standalone shape).
+// table, no re-hash, no full-occurrence remap pass (a per-chunk scan
+// followed by a merge into the session would pay all three).
 void session_scan_half(const WpDedupeSession* s, const uint8_t* data,
                        int64_t total_size, int64_t off, int64_t len,
                        int32_t* occ, PendScan* ps) {
@@ -1139,10 +824,9 @@ void session_scan_half(const WpDedupeSession* s, const uint8_t* data,
   const int32_t* s_single = s->single_uid.data();
 
   int64_t n = 0;
-  // Batched software pipeline (as in wp_segment_dedupe): scan+hash a
-  // block of units, prefetching each unit's session slot as its hash
-  // lands, then probe the block — a whole block of scan work hides each
-  // probe's cache miss.  Single-codepoint units resolve IN the scan
+  // Batched software pipeline: scan+hash a block of units, prefetching
+  // each unit's session slot as its hash lands, then probe the block — a
+  // whole block of scan work hides each probe's cache miss.  Single-codepoint units resolve IN the scan
   // phase through the direct cp maps (no hash, no probe); their final
   // occ value is carried in bres[] past the probe phase.
   constexpr int B = 64;
@@ -1422,8 +1106,6 @@ int64_t wp_dedupe_session_segment(void* handle, const uint8_t* data,
   return n_occ1 + n_occ2;
 }
 
-}  // extern "C"
-
 // Fill width-bucketed codepoint matrices with the unique units.
 // widths[n_buckets] ascending; a unit goes to the smallest width >= cplen,
 // or to the overflow list if cplen > widths[n_buckets-1].
@@ -1605,6 +1287,9 @@ int64_t wp_verify_emit(const int32_t* mat, const int32_t* emit, int64_t n_rows,
 }
 
 // --- Reusable scalar-encoder handle (vocab maps built once) --------------
+// Vocab passed as packed arrays: words = concatenated codepoints, offsets
+// int64[v+1], flags a per-token bitmask 1=is_prefix 2=skip
+// (special|malformed).
 
 struct WpVocabHandle {
   std::vector<uint32_t> words;
@@ -1635,7 +1320,9 @@ void* wp_vocab_new(const uint32_t* words, const int64_t* offsets,
 
 void wp_vocab_free(void* handle) { delete static_cast<WpVocabHandle*>(handle); }
 
-// Same walk as wp_encode_scalar but with a prebuilt vocab handle.
+// Scalar greedy MaxMatch (reference worker semantics, src/fast.cpp:43-99)
+// over the handle's maps; returns the number of ids written to out
+// (capacity >= n + 1).
 int64_t wp_encode_with(void* handle, const uint32_t* text, int64_t n,
                        int32_t* out) {
   auto* h = static_cast<WpVocabHandle*>(handle);
