@@ -6,7 +6,7 @@ package's copy; this one builds the port's own.  Mirrors the reference's
 opt-in sanitizer build (-DCMAKE_USE_SANITIZERS, reference
 CMakeLists.txt:39-45).  The library does raw pointer arithmetic,
 deliberate over-reads (wp_expand), AVX-512 class masks and thread_local
-scratch reuse across two threads — the code sanitizers exist for.
+scratch reuse across the scan's helper threads — the code sanitizers exist for.
 
 Each build runs in a subprocess that selects it with
 WORDPIECE_TPU_TORCH_NATIVE_SO, so the library this test process has loaded
@@ -79,10 +79,40 @@ def mixed_bytes(rng, n):
     return b"".join(parts)[:n]
 
 
-def two_chunks(data):
-    """data cut at the first space at or after its middle."""
-    mid = data.index(b" ", len(data) // 2)
-    return data[:mid], data[mid:]
+def space_chunks(data, size):
+    """data cut into chunks of about `size` bytes, each at a space."""
+    out, begin = [], 0
+    while begin < len(data):
+        end = min(len(data), begin + size)
+        while end < len(data) and data[end] != 0x20:
+            end += 1
+        out.append(data[begin:end])
+        begin = end
+    return out
+
+
+THREADS = (1, 2, 4, 7)
+
+
+def sessions(chunks):
+    """One session over `chunks` at each count of THREADS: the outputs
+    must not depend on the count, and each chunk runs min(n, size / 512
+    KiB) parts (the text has a space every few bytes).  -> {n: [(occ,
+    new_start, new_len, new_cplen) per chunk]}, and the last n_total."""
+    from wordpiece_tpu_torch.runtime import loader
+
+    out = {}
+    for n in THREADS:
+        s = loader.DedupeSession()
+        out[n] = []
+        for c in chunks:
+            out[n].append(s.segment(c, threads=n))
+            assert s.last_parts == max(1, min(n, len(c) >> 19)), (n, len(c), s.last_parts)
+        n_total = s.n_total
+        s.close()
+        for got, want in zip(out[n], out[1]):
+            assert all(np.array_equal(a, b) for a, b in zip(got, want)), n
+    return out, n_total
 
 
 def token_lists(n_units):
@@ -106,18 +136,16 @@ out = {}
 for size in [int(a) for a in sys.argv[2].split(",")]:
     for k, a in zip(("occ", "start", "len", "cplen"), loader.segment_dedupe(mixed_bytes(rng, size))):
         out[f"{k}{size}"] = a
-# One session over two chunks of >= 1 MB each, so each chunk's scan runs
-# in two halves; then expand over both chunks' occurrences (>= 2^18 of
-# them: the two-thread expand).
+# One session over two chunks of 2.5 MB at 1, 2, 4 and 7 threads, so
+# each chunk's scan runs in up to 4 parts; then expand over both chunks'
+# occurrences (>= 2^18 of them: the two-thread expand).
 loader.set_n_threads(2)
-data = mixed_bytes(rng, 3 << 20)
-s = loader.DedupeSession()
-for i, chunk in enumerate(two_chunks(data)):
-    for k, a in zip(("occ", "start", "len", "cplen"), s.segment(chunk)):
-        out[f"session{i}_{k}"] = a
-n_total = s.n_total
-s.close()
-occ = np.concatenate([out["session0_occ"], out["session1_occ"]])
+by_threads, n_total = sessions(space_chunks(mixed_bytes(rng, 5_000_000), 2_500_000))
+for n, outs in by_threads.items():
+    for i, arrays in enumerate(outs):
+        for k, a in zip(("occ", "start", "len", "cplen"), arrays):
+            out[f"session{n}_{i}_{k}"] = a
+occ = np.concatenate([out["session1_0_occ"], out["session1_1_occ"]])
 assert occ.shape[0] >= 1 << 18
 flat, offs = token_lists(n_total)
 out["expand"] = loader.expand(occ, flat, offs)
@@ -130,7 +158,8 @@ print("AB_SCRIPT_OK", n_total)
 def test_forced_scalar_build_segments_and_expands_as_the_default_build(tmp_path):
     """The WP_FORCE_SCALAR build (no AVX-512 class masks) is the oracle of
     the default build: a fresh session over each size, one session over
-    two chunks, and the expand of that session, array for array."""
+    two chunks at 1, 2, 4 and 7 threads (equal to each other in each
+    build), and the expand of that session, array for array."""
     _build("libwordpiece_host.so")
     _build("libwordpiece_host_scalar.so")
     sizes = ",".join(map(str, SIZES))
@@ -142,7 +171,7 @@ def test_forced_scalar_build_segments_and_expands_as_the_default_build(tmp_path)
         got[so_name] = dict(np.load(path))
     want, scalar = got["libwordpiece_host.so"], got["libwordpiece_host_scalar.so"]
     assert sorted(want) == sorted(scalar)
-    assert want["occ131072"].shape[0] > 10_000 and want["session1_start"].shape[0] > 0
+    assert want["occ131072"].shape[0] > 10_000 and want["session7_1_start"].shape[0] > 0
     for key in want:
         np.testing.assert_array_equal(scalar[key], want[key], err_msg=key)
 
@@ -153,25 +182,20 @@ from wordpiece_tpu_torch.runtime import loader
 
 assert loader.available(), "sanitizer library failed to load"
 rng = np.random.default_rng(3)
-corpus = mixed_bytes(rng, 3 << 20)
+corpus = mixed_bytes(rng, 7 << 20)
 vocab = parse_vocab(["[UNK]", "alpha", "x", "beta", "##9", "-", ".", "п", "##р",
                      "中", "文", "mixed", "tok", "##é", "あ", "##い", "q"])
 
 cps = loader.decode_utf8(corpus)
 occ, us, ul, ucp = loader.segment_dedupe(corpus[:100_000])
-# Two threads: chunks of >= 1 MB scan in two halves, expand splits in two.
+# Three chunks of 2.2 MB and a last of 0.7 MB scan in up to 4 parts at
+# 1, 2, 4 and 7 threads, the second and third against a table that already
+# holds units; the expand splits in two.
 loader.set_n_threads(2)
-s = loader.DedupeSession()
-outs, begin = [], 0
-while begin < len(corpus):
-    end = min(len(corpus), begin + 1_200_000)
-    while end < len(corpus) and corpus[end] != 0x20:
-        end += 1
-    outs.append(s.segment(corpus[begin:end]))
-    begin = end
-n_total = s.n_total
-s.close()
-assert len(outs) >= 3
+chunks = space_chunks(corpus, 2_200_000)
+assert len(chunks) >= 3 and min(len(c) for c in chunks[1:3]) >= 2 << 20
+by_threads, n_total = sessions(chunks)
+outs = by_threads[7]
 
 h = loader.VocabHandle(vocab)
 ids = h.encode(cps[:100_000])

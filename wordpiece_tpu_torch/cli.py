@@ -48,8 +48,9 @@ def main(argv=None) -> int:
         type=int,
         default=None,
         help="host threads for the native segment fan-out (reference: runner "
-        "n_threads arg, tests/runner.cpp:23; default min(cpus,2), or the "
-        "WORDPIECE_TPU_THREADS env var)",
+        "n_threads arg, tests/runner.cpp:23; default min(cpus,2), linear's "
+        "segmentation the usable cores less 2, or the WORDPIECE_TPU_THREADS "
+        "env var)",
     )
     args = ap.parse_args(argv)
 

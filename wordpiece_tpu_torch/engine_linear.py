@@ -624,9 +624,17 @@ class LinearEncoder:
                 )
             flats.append(np.asarray(ids, dtype=np.int32))
 
+        # The caller waits on this worker for most of a call, so its scan
+        # takes the host's cores (the word engine keeps two, engine_word.py).
+        seg_threads = loader.wide_n_threads()
+
         def seg_chunk(chunk: bytes):
             with self._stage("host_segment_dedupe", len(chunk)):
-                return session.segment(chunk)
+                out = session.segment(chunk, threads=seg_threads)
+            if self.stats is not None:
+                self.stats.count("segment_parts", session.last_parts)
+                self.stats.count("segment_pending", session.last_pending)
+            return out
 
         seg_futs = []
         try:

@@ -521,6 +521,9 @@ class WordEncoder:
         device handle, small); all but occ are None when the chunk
         introduces no new units.  handle ("scalar", flat, counts) marks
         host-encoded batches (already in uid order, no device fetch)."""
+        # loader.n_threads() parts (two by default), not the linear engine's
+        # wide count: a faster worker keeps one more chunk's device state
+        # alive beside the caller's, which raises the device peak.
         with self._stage("host_segment_dedupe", len(data)):
             occ, nstart, nlen, ncplen = session.segment(data)
         if nstart.shape[0] == 0:

@@ -162,6 +162,8 @@ def _load():
             ctypes.c_void_p,
             ctypes.c_void_p,
             ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_void_p,
             ctypes.c_int32,
         ]
         lib.wp_vocab_new.restype = ctypes.c_void_p
@@ -199,14 +201,9 @@ def set_n_threads(n: int | None) -> None:
     _N_THREADS_OVERRIDE = None if n is None else max(1, int(n))
 
 
-def n_threads() -> int:
-    """Host threads for the native segment/dedupe fan-out.
-
-    Priority: set_n_threads() > WORDPIECE_TPU_THREADS env > min(cpus, 2).
-    The reference plumbs this through its runner's n_threads argument
-    (tests/runner.cpp:23) into the global thread pool; here the native
-    splitter currently uses at most 2 (one split point), so values above
-    2 are accepted but clamp inside the library."""
+def _user_n_threads() -> int | None:
+    """The user's thread count: set_n_threads() > WORDPIECE_TPU_THREADS
+    env; None where neither is set."""
     if _N_THREADS_OVERRIDE is not None:
         return _N_THREADS_OVERRIDE
     env = os.environ.get("WORDPIECE_TPU_THREADS")
@@ -215,7 +212,26 @@ def n_threads() -> int:
             return max(1, int(env))
         except ValueError:
             pass
-    return min(os.cpu_count() or 1, 2)
+    return None
+
+
+def n_threads() -> int:
+    """Host threads for the native segment/dedupe fan-out and the expand.
+
+    Priority: set_n_threads() > WORDPIECE_TPU_THREADS env > min(cpus, 2).
+    The reference plumbs this through its runner's n_threads argument
+    (tests/runner.cpp:23) into the global thread pool.  The session scan
+    runs min(n, size / 512 KiB) parts; the expand splits in two at most."""
+    user = _user_n_threads()
+    return user if user is not None else min(os.cpu_count() or 1, 2)
+
+
+def wide_n_threads() -> int:
+    """Host threads for a segmentation that may take the host's cores:
+    the user's override where one is set, else the usable cores less two
+    (the caller's thread and the CUDA driver's), at least 1."""
+    user = _user_n_threads()
+    return user if user is not None else max(1, len(os.sched_getaffinity(0)) - 2)
 
 
 def decode_utf8(data: bytes) -> np.ndarray | None:
@@ -250,10 +266,7 @@ def segment_dedupe(data: bytes):
 
     Implemented as a one-shot DedupeSession: a fresh session's first
     segment call has exactly this contract (occ ids in first-seen order,
-    new_* = every unique in uid order), and the session scanner carries
-    the fast paths (fat self-contained table slots, the single-codepoint
-    direct maps, 2-thread halves) that the legacy standalone scanner
-    lacks."""
+    new_* = every unique in uid order), with `n_threads()` parts."""
     lib = _load()
     if lib is None:
         return None
@@ -281,6 +294,8 @@ class DedupeSession:
         self._lib = lib
         self._h = lib.wp_dedupe_session_new()
         self.n_total = 0
+        self.last_parts = 0
+        self.last_pending = 0
 
     @staticmethod
     def _buf(name: str, cap: int, dtype) -> np.ndarray:
@@ -300,10 +315,13 @@ class DedupeSession:
             scr[name] = arr
         return arr
 
-    def segment(self, data: bytes):
+    def segment(self, data: bytes, threads: int | None = None):
         """-> (occ int32[n_occ] global uids, new_start int64[n_new],
         new_len int32[n_new], new_cplen int32[n_new]).  All four are
-        copies (safe to hold across later segment calls)."""
+        copies (safe to hold across later segment calls).  The scan runs
+        in up to `threads` parts (None: `n_threads()`); `last_parts`
+        and `last_pending` then hold the parts it ran and the pendings
+        (units a part did not find in the session) it merged."""
         size = len(data)
         cap = max(size, 1)
         buf = np.frombuffer(data, dtype=np.uint8) if size else np.zeros(1, np.uint8)
@@ -313,7 +331,9 @@ class DedupeSession:
         ncplen = self._buf("ncplen", cap, np.int32)
         n_new = ctypes.c_int64(0)
         n_total = ctypes.c_int64(0)
-        nthr = n_threads()
+        n_parts = ctypes.c_int64(0)
+        n_pending = ctypes.c_int64(0)
+        nthr = n_threads() if threads is None else threads
         n_occ = self._lib.wp_dedupe_session_segment(
             self._h,
             buf.ctypes.data_as(ctypes.c_void_p),
@@ -324,9 +344,13 @@ class DedupeSession:
             ncplen.ctypes.data_as(ctypes.c_void_p),
             ctypes.byref(n_new),
             ctypes.byref(n_total),
+            ctypes.byref(n_parts),
+            ctypes.byref(n_pending),
             np.int32(nthr),
         )
         self.n_total = n_total.value
+        self.last_parts = n_parts.value
+        self.last_pending = n_pending.value
         k = n_new.value
         return (
             occ[:n_occ].copy(),

@@ -27,6 +27,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <unordered_map>
@@ -451,13 +452,13 @@ inline int64_t next_clear_bit(const uint64_t* m, int64_t i) {
   return (w << 6) + __builtin_ctzll(cur);
 }
 
-// Persistent second-half worker: a fresh std::thread per call would tear
-// down and rebuild the thread_local scratch (masks + half buffers) every
-// pipeline chunk.
-class HalfWorker {
+// Persistent helper thread of the session scan: a fresh std::thread per
+// call would tear down and rebuild the thread_local scratch (masks + part
+// buffers) every pipeline chunk.
+class Helper {
  public:
-  HalfWorker() : th_([this] { loop(); }) {}
-  ~HalfWorker() {
+  Helper() : th_([this] { loop(); }) {}
+  ~Helper() {
     {
       std::lock_guard<std::mutex> g(mu_);
       stop_ = true;
@@ -504,6 +505,14 @@ class HalfWorker {
   bool has_job_ = false, done_ = false, stop_ = false;
   std::thread th_;
 };
+
+// The calling thread's k-th helper (0-based).  The pool is thread_local
+// and grows on demand; its helpers live until the calling thread exits.
+Helper& helper(size_t k) {
+  static thread_local std::vector<std::unique_ptr<Helper>> pool;
+  while (pool.size() <= k) pool.push_back(std::make_unique<Helper>());
+  return *pool[k];
+}
 
 }  // namespace
 
@@ -712,8 +721,9 @@ struct SessionTable {
   // No stored hash: (len, first8) is the quick reject, and a full key
   // compare needs the arena only for len > 8 tails.  Rehashing on grow
   // recomputes each unit's hash from its (padded) arena bytes.
-  void grow(const uint8_t* arena, const int64_t* astart, int64_t arena_size) {
-    SessionTable bigger(2 * (mask + 1));
+  void grow(const uint8_t* arena, const int64_t* astart, int64_t arena_size,
+            size_t cap_pow2) {
+    SessionTable bigger(cap_pow2);
     for (size_t s = 0; s <= mask; s++) {
       if (t[s].uid >= 0) {
         const uint64_t h =
@@ -764,7 +774,7 @@ struct PendScan {
   std::vector<int32_t> plen, pcplen;
   std::vector<uint64_t> phash;
   std::vector<int32_t> pcp;  // BMP cp for single-cp pendings, else -1
-  std::vector<int64_t> fix_pos;  // half-relative occ indices
+  std::vector<int64_t> fix_pos;  // part-relative occ indices
   // Pending-tier singles map (cp -> pending idx), dirty-list reset.
   std::vector<int32_t> single_pend = std::vector<int32_t>(1 << 16, -1);
   std::vector<int32_t> single_dirty;
@@ -805,12 +815,13 @@ inline int32_t single_cp(const uint8_t* p, int32_t klen) {
 
 // Scan data[off, off+len) writing SESSION uids into occ; unknown units
 // become -(pending_idx)-1 placeholders collected in `ps`.  Strictly
-// read-only on the session table, so two halves run concurrently.  This
-// is the session fast path: for steady-state pipeline chunks (Zipf: new
-// units are rare) occurrence ids are final immediately — no chunk-local
-// table, no re-hash, no full-occurrence remap pass (a per-chunk scan
-// followed by a merge into the session would pay all three).
-void session_scan_half(const WpDedupeSession* s, const uint8_t* data,
+// read-only on the session table, so the parts of a chunk run
+// concurrently.  This is the session fast path: for steady-state
+// pipeline chunks (Zipf: new units are rare) occurrence ids are final
+// immediately — no chunk-local table, no re-hash, no full-occurrence
+// remap pass (a per-chunk scan followed by a merge into the session would
+// pay all three).
+void session_scan_part(const WpDedupeSession* s, const uint8_t* data,
                        int64_t total_size, int64_t off, int64_t len,
                        int32_t* occ, PendScan* ps) {
   thread_local ClassMasks cm;
@@ -972,73 +983,102 @@ void wp_dedupe_session_free(void* h) { delete static_cast<WpDedupeSession*>(h); 
 // Outputs: occ_unique (global uids), new_{start,len,cplen} describe only
 // this chunk's first-seen units as offsets into `data`, in uid order
 // (uids n_before .. n_before+n_new-1).  Returns n_occ; *n_new_out and
-// *n_total_out report the new and cumulative unique counts.
+// *n_total_out report the new and cumulative unique counts, *n_parts_out
+// the parts the scan ran and *n_pending_out the pendings it merged.
+//
+// The chunk is cut into min(n_threads, size / 512 KiB) parts (at least
+// one): cut k is the first space-class byte at or after k * size / parts
+// (any ASCII whitespace byte, or U+2581's 3-byte sequence; a continuation
+// byte can match neither, so scanning from an arbitrary offset is safe).
+// A cut that passes the next target merges the two parts, and a cut that
+// finds no space before the end is dropped.  Every output equals the
+// one-part output for any n_threads.
 int64_t wp_dedupe_session_segment(void* handle, const uint8_t* data,
                                   int64_t size, int32_t* occ_unique,
                                   int64_t* new_start, int32_t* new_len,
                                   int32_t* new_cplen, int64_t* n_new_out,
-                                  int64_t* n_total_out, int32_t n_threads) {
+                                  int64_t* n_total_out, int64_t* n_parts_out,
+                                  int64_t* n_pending_out, int32_t n_threads) {
   WpDedupeSession* s = static_cast<WpDedupeSession*>(handle);
-  // Parallel phase: halves probe the session table READ-ONLY and write
+  // Parallel phase: parts probe the session table READ-ONLY and write
   // final global uids directly; only first-seen units become pendings.
   // Serial phase is then O(new units + placeholder occurrences) — for
   // steady-state pipeline chunks that is the Zipf tail, not the chunk.
   // Scratch is thread_local, NOT per-session: sessions are created per
   // encode call and fresh zero-init would page-fault every call.  Safe
   // because a session is documented single-threaded per segment call.
-  static thread_local PendScan ps1, ps2;
-  static thread_local std::vector<int32_t> occ2_v;
+  struct Part {
+    PendScan ps;
+    std::vector<int32_t> occ;    // parts after the first: their own occ
+    std::vector<int32_t> remap;  // pending idx -> session uid
+    int64_t occ_off = 0;         // where the part's occ starts in occ_unique
+  };
+  static thread_local std::vector<std::unique_ptr<Part>> parts;
+  static thread_local std::vector<int64_t> bounds;
 
-  int64_t mid = -1;
-  if (n_threads >= 2 && size >= (1 << 20)) {
-    // First space-class cut at-or-after the middle (any ASCII whitespace
-    // byte, or U+2581's 3-byte sequence; a continuation byte can match
-    // neither, so scanning from an arbitrary offset is safe).
-    const auto is_space_cut = [&](int64_t i) {
-      const uint8_t c = data[i];
-      if (c == 0x20 || (c >= 9 && c <= 13)) return true;
-      return c == 0xE2 && i + 2 < size && data[i + 1] == 0x96 &&
-             data[i + 2] == 0x81;
-    };
-    int64_t m = size / 2;
+  const auto is_space_cut = [&](int64_t i) {
+    const uint8_t c = data[i];
+    if (c == 0x20 || (c >= 9 && c <= 13)) return true;
+    return c == 0xE2 && i + 2 < size && data[i + 1] == 0x96 &&
+           data[i + 2] == 0x81;
+  };
+  const int64_t want = std::max<int64_t>(1, std::min<int64_t>(n_threads, size >> 19));
+  bounds.assign(1, 0);
+  for (int64_t k = 1; k < want; k++) {
+    int64_t m = k * size / want;
+    if (m <= bounds.back()) continue;  // the last cut passed this target
     while (m < size && !is_space_cut(m)) m++;
-    if (m < size) mid = m;
+    if (m >= size) break;
+    bounds.push_back(m);
   }
+  bounds.push_back(size);
+  const size_t n_parts = bounds.size() - 1;
+  while (parts.size() < n_parts) parts.push_back(std::make_unique<Part>());
 
-  int64_t n_occ1 = 0, n_occ2 = 0;
-  if (mid >= 0) {
-    const size_t cap2 = static_cast<size_t>(size - mid);
-    if (occ2_v.size() < cap2) occ2_v.resize(cap2);
-    static thread_local HalfWorker worker;
-    // Bind the thread_locals on THIS thread before handing them to the
-    // worker: a lambda body names a thread_local directly (no capture),
-    // which inside the worker would resolve to the worker's own empty
-    // instances — null occ buffer, pendings written to the wrong state.
-    PendScan* const ps2p = &ps2;
-    int32_t* const occ2p = occ2_v.data();
-    worker.run([=] {
-      session_scan_half(s, data, size, mid, size - mid, occ2p, ps2p);
+  // Parts after the first go to this thread's helpers; the first runs
+  // here, straight into occ_unique.  The lambdas capture the parts by
+  // pointer: a lambda body naming a thread_local would resolve to the
+  // helper's own empty instance.
+  for (size_t k = 1; k < n_parts; k++) {
+    Part* const p = parts[k].get();
+    const size_t cap = static_cast<size_t>(bounds[k + 1] - bounds[k]);
+    if (p->occ.size() < cap) p->occ.resize(cap);
+    const int64_t off = bounds[k], len = bounds[k + 1] - bounds[k];
+    helper(k - 1).run([=] {
+      session_scan_part(s, data, size, off, len, p->occ.data(), &p->ps);
     });
-    session_scan_half(s, data, size, 0, mid, occ_unique, &ps1);
-    worker.wait();
-    n_occ1 = ps1.n_occ;
-    n_occ2 = ps2.n_occ;
-    std::memcpy(occ_unique + n_occ1, occ2_v.data(),
-                static_cast<size_t>(n_occ2) * sizeof(int32_t));
-  } else {
-    session_scan_half(s, data, size, 0, size, occ_unique, &ps1);
-    n_occ1 = ps1.n_occ;
-    ps2.reset();
+  }
+  session_scan_part(s, data, size, 0, bounds[1], occ_unique, &parts[0]->ps);
+  parts[0]->occ_off = 0;
+  int64_t n_occ = parts[0]->ps.n_occ;
+  for (size_t k = 1; k < n_parts; k++) {
+    helper(k - 1).wait();
+    Part* const p = parts[k].get();
+    p->occ_off = n_occ;
+    std::memcpy(occ_unique + n_occ, p->occ.data(),
+                static_cast<size_t>(p->ps.n_occ) * sizeof(int32_t));
+    n_occ += p->ps.n_occ;
   }
 
-  // Serial merge: insert pendings into the session (in uid order:
-  // half 1's first), then patch only the placeholder occurrences.
+  // Serial merge: insert pendings into the session in part order (so
+  // uids stay in first-seen order), then patch only the placeholder
+  // occurrences.  The table is sized for every pending first, so the
+  // merge never grows it: one rehash a call at most, not one a doubling.
+  size_t n_pending_all = 0;
+  for (size_t k = 0; k < n_parts; k++) n_pending_all += parts[k]->ps.pstart.size();
+  size_t cap = s->table.mask + 1;
+  while ((static_cast<size_t>(s->n_uniq) + n_pending_all) * 2 > cap - 1) cap *= 2;
+  if (cap > s->table.mask + 1)
+    s->table.grow(s->arena.data(), s->astart.data(),
+                  static_cast<int64_t>(s->arena.size()), cap);
   int64_t n_new = 0;
-  static thread_local std::vector<int32_t> remap1, remap2;
   const auto merge_pend = [&](PendScan& ps, std::vector<int32_t>& remap) {
     const size_t np = ps.pstart.size();
     if (remap.size() < np) remap.resize(np);
     for (size_t p = 0; p < np; p++) {
+      // Fetch the slot of a pending a few ahead while this one is probed.
+      if (p + 8 < np && ps.pcp[p + 8] < 0)
+        __builtin_prefetch(&s->table.t[static_cast<size_t>(ps.phash[p + 8]) & s->table.mask]);
       const int64_t start = ps.pstart[p];
       const int32_t len = ps.plen[p];
       int32_t found = -1;
@@ -1046,7 +1086,7 @@ int64_t wp_dedupe_session_segment(void* handle, const uint8_t* data,
       size_t b = 0;
       uint64_t w8 = 0;
       if (cp1 >= 0) {
-        // Single-cp pending: dedupe (across halves) via the direct map.
+        // Single-cp pending: dedupe (across parts) via the direct map.
         found = s->single_uid[static_cast<size_t>(cp1)];
       } else {
         const uint64_t h = ps.phash[p];
@@ -1080,9 +1120,6 @@ int64_t wp_dedupe_session_segment(void* handle, const uint8_t* data,
           s->table.t[b].uid = found;
           s->table.t[b].len = len;
           s->table.t[b].first8 = w8;
-          if (static_cast<size_t>(s->n_uniq) * 2 > s->table.mask)
-            s->table.grow(s->arena.data(), s->astart.data(),
-                          static_cast<int64_t>(s->arena.size()));
         }
         new_start[n_new] = start;
         new_len[n_new] = len;
@@ -1092,18 +1129,19 @@ int64_t wp_dedupe_session_segment(void* handle, const uint8_t* data,
       remap[p] = found;
     }
   };
-  merge_pend(ps1, remap1);
-  merge_pend(ps2, remap2);
-  for (const int64_t pos : ps1.fix_pos) {
-    occ_unique[pos] = remap1[static_cast<size_t>(-occ_unique[pos] - 1)];
-  }
-  for (const int64_t pos : ps2.fix_pos) {
-    occ_unique[n_occ1 + pos] =
-        remap2[static_cast<size_t>(-occ_unique[n_occ1 + pos] - 1)];
+  for (size_t k = 0; k < n_parts; k++) {
+    Part& p = *parts[k];
+    merge_pend(p.ps, p.remap);
+    int32_t* const occ = occ_unique + p.occ_off;
+    for (const int64_t pos : p.ps.fix_pos) {
+      occ[pos] = p.remap[static_cast<size_t>(-occ[pos] - 1)];
+    }
   }
   *n_new_out = n_new;
   *n_total_out = s->n_uniq;
-  return n_occ1 + n_occ2;
+  *n_parts_out = static_cast<int64_t>(n_parts);
+  *n_pending_out = static_cast<int64_t>(n_pending_all);
+  return n_occ;
 }
 
 // Fill width-bucketed codepoint matrices with the unique units.
@@ -1220,7 +1258,7 @@ int64_t wp_expand_mt(const int32_t* occ_unique, int64_t n_occ,
   }
   const int64_t mid = n_occ / 2;
   const int64_t total1 = wp_expand_total(occ_unique, mid, tok_offsets);
-  static thread_local HalfWorker worker;
+  Helper& worker = helper(0);
   int64_t n2 = 0;
   worker.run([&] {
     n2 = wp_expand(occ_unique + mid, n_occ - mid, tok_flat, tok_offsets,
