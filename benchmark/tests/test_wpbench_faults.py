@@ -16,20 +16,20 @@ from wpbench import cell
 
 def encoder_with(name, patch):
     """A stand-in for the program: the configuration's encoder with
-    `patch(encoder)` applied to it."""
+    `patch(encoder, mix)` applied to it (`mix`: the cell's traffic mix)."""
     def make(root):
         c = cell.Cell(name, root=str(root))
         base = cell.program(c, "cpu")
 
         def build(lines):
             enc = base(lines)
-            patch(enc)
+            patch(enc, c.mix)
             return enc
         return build
     return make
 
 
-def alter_first_fetched_id(enc):
+def alter_first_fetched_id(enc, mix):
     """A token altered where it is produced: the card's output, as fetched."""
     if hasattr(enc, "_fetch_buckets"):  # fast: the word kernel's emits
         real = enc._fetch_buckets
@@ -53,26 +53,27 @@ def alter_first_fetched_id(enc):
         enc._fetch_batch = fetch
 
 
-def drop_half(enc):
+def drop_half(enc, mix):
     """Half of the answer left out: the call returns its first half."""
     real = enc.encode_bytes
     enc.encode_bytes = lambda doc: (lambda ids: ids[: ids.shape[0] // 2])(real(doc))
 
 
-def raise_on_call(enc):
-    """An answer that never comes: a call of the window raises (the small
-    mixes warm up with 3 calls)."""
+def raise_on_call(enc, mix):
+    """An answer that never comes: the window's first call raises, the one
+    after the mix's warm-up calls, so however few calls a loaded host fits
+    into the window, the fault fires."""
     real, calls = enc.encode_bytes, []
 
     def fail(doc):
         calls.append(doc)
-        if len(calls) > 4:
+        if len(calls) == int(mix["warmup_calls"]) + 1:
             raise RuntimeError("planted fault")
         return real(doc)
     enc.encode_bytes = fail
 
 
-def stall_fetch(enc):
+def stall_fetch(enc, mix):
     """A fetch that misses its deadline, which the CPU path rescues."""
     real = enc._fetch_buckets
     enc.DEVICE_FETCH_TIMEOUT_S = enc.DEVICE_FIRST_FETCH_TIMEOUT_S = 0.01
@@ -102,6 +103,8 @@ def test_a_planted_fault_is_not_correct(small_root, name, fault, caught_by):
     out = run_small(small_root, name, False, make=encoder_with(name, fault)(small_root))["result"]
     assert out["correct"] is False
     assert out["compared"][caught_by]["value"] > out["compared"][caught_by]["limit"]
+    if fault is raise_on_call:  # the window's first call: nothing else attempted
+        assert out["compared"]["calls_failed"]["value"] == 1 and out["attempted"] == 1
 
 
 @pytest.mark.parametrize("seed", [11, 2**31 + 12, 2**32 + 13])
@@ -113,6 +116,6 @@ def test_the_control_is_not_correct(small_root, name, seed):
 
 def test_unbroken_the_same_runs_are_correct(small_root):
     for name in {n for n, _, _ in FAULTS}:
-        ok = run_small(small_root, name, False, make=encoder_with(name, lambda enc: None)(small_root))
+        ok = run_small(small_root, name, False, make=encoder_with(name, lambda enc, mix: None)(small_root))
         assert ok["result"]["correct"] is True
         assert np.all([v["value"] == 0 for v in ok["result"]["compared"].values()])

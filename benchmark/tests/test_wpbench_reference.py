@@ -82,3 +82,17 @@ def test_the_control_breaks_the_longest_match():
     data = b"abcdefghij"
     assert Reference(lines).encode(data)[0].tolist() == [1]
     assert Reference(lines, longest_match=8).encode(data)[0].tolist() == [2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
+
+
+@pytest.mark.parametrize("lines", VOCABS, ids=["unk-heavy", "no-unk-line", "dense"])
+def test_a_run_is_its_segments(lines):
+    """encode_run, segment by segment and each distinct segment once, gives
+    the ids of the loop over the whole run."""
+    ref = Reference(lines)
+    rng = np.random.default_rng(7 + len(lines))
+    kana = [b"\xe3\x81\x82", b"\xe3\x82\xab", b"\xe3\x80\x81", b"\xef\xbc\x8c"]  # あ カ 、 ，
+    for _ in range(300):
+        data = _random_bytes(rng, int(rng.integers(0, 80)))
+        data += b"".join(kana[i] for i in rng.integers(0, 4, size=int(rng.integers(0, 20))))
+        for run in decode(data).split():
+            assert ref.encode_run(run) == ref.encode_segment(run), run

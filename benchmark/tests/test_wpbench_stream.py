@@ -1,4 +1,4 @@
-"""The fast-stream cell: a run of it on the program's CPU path, its six
+"""The fast-stream cell: a run of it on the program's CPU path, its
 per-layer readers on canned records (with and without the program's
 stages, counters and kernels), and the kernels' byte counts against
 chip_smoke.py's."""
@@ -15,7 +15,7 @@ from conftest import BENCH
 from wpbench import cell, stream_bytes, trace
 
 CELL = "fast-stream.wiki-en-10MB"
-SPANS = ["host_decode_ms_per_MB", "stream_staging_ms_per_MB", "stream_fetch_ms_per_MB"]
+SPANS = ["stream_staging_ms_per_MB", "stream_fetch_ms_per_MB"]
 ROOFLINES = ["stream_features_roofline_pct", "stream_match_roofline_pct", "stream_commit_roofline_pct"]
 
 N = 3 << 22  # the bucket of a 10 MB document
@@ -24,7 +24,6 @@ CALLS = 30  # the window's
 WINDOW = {"calls": CALLS, "bytes": 300_000_000, "seconds": 3.0}
 STAGES = {
     "encode": {"seconds": 3.0, "self_seconds": 0.01, "calls": CALLS, "bytes": 300_000_000},
-    "host_decode": {"seconds": 1.5, "self_seconds": 1.5, "calls": CALLS, "bytes": 300_000_000},
     "host_pad": {"seconds": 0.6, "self_seconds": 0.6, "calls": CALLS},
     "stream_h2d": {"seconds": 0.3, "self_seconds": 0.3, "calls": CALLS},
     "device_dispatch": {"seconds": 0.003, "self_seconds": 0.003, "calls": CALLS},
@@ -68,7 +67,6 @@ def share(nbytes, us):
 
 
 @pytest.mark.parametrize("name,want", [
-    ("host_decode_ms_per_MB", 5.0),
     ("stream_staging_ms_per_MB", 3.0),
     ("stream_fetch_ms_per_MB", 0.15),
     ("stream_features_roofline_pct", share(20 * N + 8, 120.0)),
@@ -89,7 +87,6 @@ def test_a_roofline_reads_the_time_a_call():
 
 
 @pytest.mark.parametrize("name,gone", [
-    ("host_decode_ms_per_MB", "host_decode"),
     ("stream_staging_ms_per_MB", "host_pad"),
     ("stream_staging_ms_per_MB", "stream_h2d"),
     ("stream_fetch_ms_per_MB", "device_fetch"),
@@ -111,7 +108,7 @@ def test_a_roofline_without_its_kernels_or_peaks_reads_nothing(name):
 def test_the_parent_program_reads_nothing(name):
     """The other engines' stages, with no fast-stream counter, and a trace
     with no fast-stream kernel."""
-    old = {"device_fetch": STAGES["device_fetch"], "host_segment_dedupe": STAGES["host_decode"],
+    old = {"device_fetch": STAGES["device_fetch"], "host_segment_dedupe": STAGES["host_pad"],
            "counters": {"units_new": 5}}
     want_none = name != "stream_fetch_ms_per_MB"  # that stage is every engine's
     assert (read(name, records(stages=old, evs=events({"word_kernel": 10.0}))) is None) == want_none
@@ -124,8 +121,9 @@ def test_the_cell_runs_on_the_cpu(small_root, traced):
     out = res["result"]
     assert res["error"] is None and out["correct"] is True and out["failed"] == 0
     assert out["compared"]["ids_wrong"]["value"] == 0 and res["info"]["calls_checked"] >= 1
-    if traced:  # on the CPU: the spans, and no kernel to read a roofline from
-        assert set(out["metrics"]) == set(SPANS)
+    if traced:  # on the CPU: the spans and the card's share of the decode (0), no kernel to read
+        assert set(out["metrics"]) == set(SPANS) | {"stream_card_decode_pct"}
+        assert out["metrics"]["stream_card_decode_pct"]["value"] == 0
     else:
         rate = {m["name"] for m in c.end_to_end if m["name"] == "encode_MBps"}
         assert set(out["metrics"]) == {"setup_s"} | rate

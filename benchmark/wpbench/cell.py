@@ -241,7 +241,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, *, t_start: float,
     if on_cuda:
         torch.zeros(1, device=device)
     parts["cuda"] = time.monotonic() - t_start
-    corpus = Corpus(mix["corpus"], seed, int(cfg["vocab_size"]))
+    corpus = Corpus(mix["corpus"], seed, int(cfg["vocab_size"]), cfg.get("vocab_sample"))
     docs = Documents(mix["documents"], corpus.pool, seed, int(mix["warmup_calls"]))
     parts["traffic"] = time.monotonic() - t_start
     encoder = (make or program(cell, device))(corpus.vocab_lines)

@@ -1,14 +1,34 @@
-"""Synthetic Wikipedia-shaped text and a bert-base-cased-shaped vocab, from a seed.
+"""Synthetic Wikipedia-shaped text and a bert-shaped vocab, from a seed.
 
 A frozen, vectorised copy of `wordpiece_tpu_torch/bench/corpus.py`'s
 `make_corpus` (en) and `make_vocab_bert`, with the number of word types
-and the Zipf exponent as parameters.  The upstream harness tokenizes
-linguatools Wikipedia dumps with bert-base-cased's vocab; without a
-network, the text is drawn instead: sentences of 8-17 words, words of
-1-16 letters at English letter frequencies, word types ranked by a Zipf
-law, punctuation as the original generator places it.  The sentences are
-assembled with numpy in blocks, so a 40 MB pool takes about a second and
-nothing is cached on disk.
+and the Zipf exponent as parameters, and three more languages.  The
+upstream harness tokenizes linguatools Wikipedia dumps in en, ru, ja and
+zh with bert's vocabs; without a network, the text is drawn instead, in
+the shapes of each dump, lower-case:
+
+- en: sentences of 8-17 words, words of 1-16 letters at English letter
+  frequencies, punctuation as the original generator places it;
+- ru: the same frame, words of 1-16 Cyrillic letters (а-я, ё) at Russian
+  letter frequencies, lengths poisson(5.2) + 1: 2 bytes a letter;
+- zh: sentences of 8-17 words with no spaces, each word 1-4 ideographs
+  of U+4E00-U+9FFF under a Zipf law over 8,000 characters, "，" inside and
+  "。" at the end;
+- ja: sentences of 8-17 phrases with no spaces, each a kanji word (1-3
+  ideographs under a Zipf law over 6,000) or, at a quarter of the ranks,
+  a katakana word, then 0-4 hiragana; "、" inside and "。" at the end.  Kana
+  and both marks are not spacing characters, so a hiragana tail and the
+  katakana words after it join into one unit, which can be longer than
+  the vocab's longest piece.
+
+In zh and ja, evenly spaced ranks of the word types are Latin words (en's
+law) or numbers of 1-4 digits, as a dump's names, abbreviations and years:
+units of up to 16 codepoints, alone between ideographs in zh, joined to
+the kana beside them in ja.
+
+Word types are ranked by a Zipf law in every language; every sentence
+ends in a newline.  The sentences are assembled with numpy in blocks, so
+a 40 MB pool takes a few seconds and nothing is cached on disk.
 
 Nothing here imports the program: the benchmark's yardstick stays fixed
 while the program changes.
@@ -16,32 +36,84 @@ while the program changes.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
+from .reference import classes
+
+LANGS = ("en", "ru", "zh", "ja")
 LETTERS = np.frombuffer(b"etaoinshrdlcumwfgypbvkjxqz", dtype=np.uint8)
 # Roughly English letter frequencies (the original generator's table).
 LETTER_FREQ = np.array([12.7, 9.1, 8.2, 7.5, 7.0, 6.7, 6.3, 6.1, 6.0, 4.3, 4.0, 2.8, 2.8,
                         2.4, 2.4, 2.2, 2.0, 2.0, 1.9, 1.5, 1.0, 0.8, 0.2, 0.15, 0.1, 0.07])
 PUNCT = [",", ".", "!", "?", ";", "-", ":"]
+CYRILLIC = np.array([ord(c) for c in "оеаинтсрвлкмдпуяыьгзбчйхжшюцщэфъё"])
+# Russian letter frequencies, in %.
+CYRILLIC_FREQ = np.array([10.97, 8.45, 8.01, 7.35, 6.70, 6.26, 5.47, 4.73, 4.54, 4.40, 3.49, 3.21,
+                          2.98, 2.81, 2.62, 2.01, 1.90, 1.74, 1.70, 1.65, 1.59, 1.44, 1.21, 0.97,
+                          0.94, 0.73, 0.64, 0.48, 0.36, 0.32, 0.26, 0.04, 0.04])
+IDEOGRAPHS = (0x4E00, 0x9FFF)
+HIRAGANA = (0x3041, 0x3096)
+KATAKANA = (0x30A1, 0x30FA)
+
+# The shapes of ru, zh and ja: the one place they are set.  A mix gives
+# its language, word_types, zipf_exponent and sizes.  Sources: the Unicode
+# blocks, and CYRILLIC_FREQ, the table of ru.wikipedia's article
+# "Частотность" (from the Russian National Corpus).  Every number below is
+# guessed, with no source: a ru, zh or ja mix is not fit to be a cell
+# until its numbers have one (PERF.md §7).
+RU_LENGTH_MEAN = 5.2  # guessed: word lengths poisson(mean) + 1, at most 16
+ZH_CHAR_TYPES = 8000  # guessed
+ZH_WORD_LEN_MIX = [0.3, 0.55, 0.1, 0.05]  # guessed: shares of words of 1-4 ideographs
+JA_KANJI_TYPES = 6000  # guessed
+JA_KANJI_LEN_MIX = [0.35, 0.5, 0.15]  # guessed: 1-3 kanji
+JA_TAIL_MIX = [0.2, 0.3, 0.25, 0.15, 0.1]  # guessed: 0-4 hiragana after a word
+JA_KATAKANA_SHARE, JA_KATAKANA_LEN = 0.25, (2, 8)  # guessed
+LATIN_SHARE, DIGIT_SHARE = 0.04, 0.03  # guessed: zh and ja word types that are ASCII
+# The word types and law of a multilingual sample's languages other than
+# the mix's own: the en mix's.
+SAMPLE_WORD_TYPES, SAMPLE_ZIPF_EXPONENT = 100_000, 1.0
 
 # Streams drawn from one --seed; each purpose has its own.
 STREAM_WORDS, STREAM_POOL, STREAM_VOCAB_SAMPLE, STREAM_DOCS, STREAM_CHECK = range(5)
 
 
-def rng_for(seed: int, stream: int) -> np.random.Generator:
+def rng_for(seed: int, stream: int, *more: int) -> np.random.Generator:
     """The generator of one purpose, from a seed of any size or sign."""
-    return np.random.default_rng([int(seed) & (2**64 - 1), stream])
+    return np.random.default_rng([int(seed) & (2**64 - 1), stream, *more])
+
+
+def utf8(cps: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the UTF-8 bytes of BMP codepoints, each codepoint's byte count)."""
+    cps = np.asarray(cps, dtype=np.uint32)
+    data = np.frombuffer(cps.astype("<u4").tobytes().decode("utf-32-le").encode("utf-8"), np.uint8)
+    return data, np.where(cps < 0x80, 1, np.where(cps < 0x800, 2, 3))
 
 
 class WordTypes:
-    """`n` word types: letters flat in `data`, word i at offs[i]:offs[i+1].
-    Types may repeat (short words collide), as in the original list."""
+    """`n` word types in UTF-8: bytes flat in `data`, word i at
+    offs[i]:offs[i+1].  Types may repeat (short words collide), as in the
+    original list.  `WordTypes(rng, n)` draws the en types."""
 
     def __init__(self, rng: np.random.Generator, n: int):
         p = LETTER_FREQ / LETTER_FREQ.sum()
         lens = np.clip(rng.poisson(4.7, size=n) + 1, 1, 16)
-        self.data = LETTERS[rng.choice(LETTERS.shape[0], size=int(lens.sum()), p=p)]
-        self.offs = np.zeros(n + 1, dtype=np.int64)
+        self._set(LETTERS[rng.choice(LETTERS.shape[0], size=int(lens.sum()), p=p)], lens)
+
+    @classmethod
+    def of_codepoints(cls, cps: np.ndarray, lens: np.ndarray) -> "WordTypes":
+        """Word i: the next lens[i] codepoints of `cps`."""
+        words = cls.__new__(cls)
+        data, nbytes = utf8(cps)
+        starts = np.zeros(lens.shape[0], np.int64)
+        np.cumsum(lens[:-1], out=starts[1:])
+        words._set(data, np.add.reduceat(nbytes, starts))
+        return words
+
+    def _set(self, data: np.ndarray, lens: np.ndarray) -> None:
+        self.data = data
+        self.offs = np.zeros(lens.shape[0] + 1, dtype=np.int64)
         np.cumsum(lens, out=self.offs[1:])
 
     @property
@@ -49,7 +121,7 @@ class WordTypes:
         return self.offs.shape[0] - 1
 
     def word(self, i: int) -> str:
-        return self.data[self.offs[i] : self.offs[i + 1]].tobytes().decode("ascii")
+        return self.data[self.offs[i] : self.offs[i + 1]].tobytes().decode("utf-8")
 
 
 class ZipfRanks:
@@ -77,29 +149,128 @@ class ZipfRanks:
             idx[ahead] += 1
 
 
+def _draw_from(rng: np.random.Generator, block: tuple[int, int], n: int) -> np.ndarray:
+    """`n` distinct codepoints of a block, in an order drawn from `rng`."""
+    return block[0] + rng.choice(block[1] - block[0] + 1, size=n, replace=False)
+
+
+def _every(n: int, share: float, offset: float = 0.0) -> np.ndarray:
+    """A mask of `n` ranks, `share` of them evenly spaced: the same ranks
+    for every seed."""
+    return np.diff(np.floor(np.arange(n + 1) * share + offset)) > 0
+
+
+def _with_ascii(rng: np.random.Generator, cps: np.ndarray, lens: np.ndarray) -> WordTypes:
+    """Word types from codepoints and lengths, with LATIN_SHARE of the ranks
+    made Latin words at en's law and DIGIT_SHARE numbers of 1-4 digits."""
+    n = lens.shape[0]
+    latin = _every(n, LATIN_SHARE)
+    digit = _every(n, DIGIT_SHARE, 0.5) & ~latin
+    new_lens = np.where(latin, np.clip(rng.poisson(4.7, size=n) + 1, 1, 16),
+                        np.where(digit, rng.integers(1, 5, size=n), lens))
+    old_starts = np.zeros(n, np.int64)
+    np.cumsum(lens[:-1], out=old_starts[1:])
+    starts = np.zeros(n, np.int64)
+    np.cumsum(new_lens[:-1], out=starts[1:])
+    word = np.repeat(np.arange(n), new_lens)
+    pos = np.arange(word.shape[0]) - starts[word]
+    out = np.empty(word.shape[0], np.int64)
+    kept = ~(latin | digit)[word]
+    out[kept] = cps[old_starts[word[kept]] + pos[kept]]
+    is_l, is_d = latin[word], digit[word]
+    p = LETTER_FREQ / LETTER_FREQ.sum()
+    out[is_l] = LETTERS[rng.choice(LETTERS.shape[0], size=int(is_l.sum()), p=p)]
+    out[is_d] = ord("0") + rng.integers(0, 10, size=int(is_d.sum()))
+    return WordTypes.of_codepoints(out, new_lens)
+
+
+def ru_words(rng: np.random.Generator, n: int) -> WordTypes:
+    lens = np.clip(rng.poisson(RU_LENGTH_MEAN, size=n) + 1, 1, 16)
+    freq = CYRILLIC_FREQ / CYRILLIC_FREQ.sum()
+    return WordTypes.of_codepoints(CYRILLIC[rng.choice(CYRILLIC.shape[0], size=int(lens.sum()), p=freq)],
+                                   lens)
+
+
+def zh_words(rng: np.random.Generator, n: int) -> WordTypes:
+    chars = _draw_from(rng, IDEOGRAPHS, ZH_CHAR_TYPES)  # by rank
+    mix = np.asarray(ZH_WORD_LEN_MIX)
+    lens = rng.choice(mix.shape[0], size=n, p=mix / mix.sum()) + 1
+    ranks = ZipfRanks(ZH_CHAR_TYPES, 1.0).draw(rng, int(lens.sum()))
+    return _with_ascii(rng, chars[ranks], lens)
+
+
+def ja_words(rng: np.random.Generator, n: int) -> WordTypes:
+    """Phrase types: a kanji word or a katakana word, then a hiragana tail."""
+    kanji = _draw_from(rng, IDEOGRAPHS, JA_KANJI_TYPES)
+    hira = _draw_from(rng, HIRAGANA, HIRAGANA[1] - HIRAGANA[0] + 1)
+    kata = _draw_from(rng, KATAKANA, KATAKANA[1] - KATAKANA[0] + 1)
+    is_kata = _every(n, JA_KATAKANA_SHARE, 0.25)
+    kmix, tmix = np.asarray(JA_KANJI_LEN_MIX), np.asarray(JA_TAIL_MIX)
+    stem = np.where(is_kata, rng.integers(JA_KATAKANA_LEN[0], JA_KATAKANA_LEN[1] + 1, size=n),
+                    rng.choice(kmix.shape[0], size=n, p=kmix / kmix.sum()) + 1)
+    tail = rng.choice(tmix.shape[0], size=n, p=tmix / tmix.sum())
+    lens = stem + tail
+    starts = np.zeros(n, np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    word = np.repeat(np.arange(n), lens)
+    in_stem = np.arange(word.shape[0]) - starts[word] < stem[word]
+    cps = np.empty(word.shape[0], np.int64)
+    for where, chars in ((in_stem & ~is_kata[word], kanji), (in_stem & is_kata[word], kata),
+                         (~in_stem, hira)):
+        cps[where] = chars[ZipfRanks(chars.shape[0], 1.0).draw(rng, int(where.sum()))]
+    return _with_ascii(rng, cps, lens)
+
+
+def words_of(lang: str, n: int, rng: np.random.Generator) -> WordTypes:
+    """`n` word types of a language."""
+    if lang == "en":
+        return WordTypes(rng, n)
+    return {"ru": ru_words, "zh": zh_words, "ja": ja_words}[lang](rng, n)
+
+
+class Frame(NamedTuple):
+    """How a language's sentences are put together: words joined by a space
+    or by nothing, one mark of `marks` inside with probability 0.6, one of
+    `finals` (all of one byte length) and a newline at the end."""
+
+    spaced: bool
+    marks: list[str]
+    finals: list[str]
+
+
+FRAMES = {"en": Frame(True, PUNCT, [",", ".", "!"]), "ru": Frame(True, PUNCT, [",", ".", "!"]),
+          "zh": Frame(False, ["，"], ["。"]), "ja": Frame(False, ["、"], ["。"])}
+
+
 def make_text(
     rng: np.random.Generator, words: WordTypes, size_bytes: int, exponent: float,
-    *, block_sentences: int = 50_000,
+    *, frame: Frame = FRAMES["en"], whole_lines: bool = False, block_sentences: int = 50_000,
 ) -> tuple[bytes, np.ndarray]:
     """`size_bytes` of text and the count of each word type in it.
 
-    Each line is one sentence: k (8-17) words joined by spaces; with
-    probability 0.6 one punctuation mark from PUNCT stands as its own
-    word at a position 1..k-1; the line ends in ",", "." or "!" and a
-    newline.  The text is cut at `size_bytes`, so its last word may be
-    cut short (it is not counted)."""
+    Each line is one sentence: k (8-17) words, joined by spaces where the
+    frame says so; with probability 0.6 one mark of the frame stands as
+    its own word at a position 1..k-1; the line ends in one of the
+    frame's finals and a newline.  The text is cut at `size_bytes`, so
+    its last word may be cut short (it is not counted); with
+    `whole_lines`, at the last newline before it."""
     ranks = ZipfRanks(words.n, exponent)
-    n_tok = words.n + len(PUNCT)
-    lens = np.concatenate([np.diff(words.offs), np.ones(len(PUNCT), np.int64)])
-    width = int(lens.max()) + 2
-    # Each token's bytes and a space, in a row of `width` bytes.
+    marks = [m.encode("utf-8") for m in frame.marks]
+    n_tok = words.n + len(marks)
+    lens = np.concatenate([np.diff(words.offs), [len(m) for m in marks]]).astype(np.int64)
+    finals = np.frombuffer("".join(frame.finals).encode("utf-8"), np.uint8).reshape(len(frame.finals), -1)
+    n_fin = finals.shape[1]
+    sep = int(frame.spaced)
+    width = int(lens.max()) + max(sep, n_fin + 1)
+    # Each token's bytes and the separator, in a row of `width` bytes.
     rows = np.zeros((n_tok, width), dtype=np.uint8)
     col = np.arange(width)
     in_word = col[None, :] < lens[:words.n, None]
     rows[:words.n][in_word] = words.data
-    rows[words.n:, 0] = np.frombuffer("".join(PUNCT).encode(), np.uint8)
-    rows[np.arange(n_tok), lens] = 32
-    final = np.frombuffer(b",.!", np.uint8)
+    for j, m in enumerate(marks):
+        rows[words.n + j, : len(m)] = np.frombuffer(m, np.uint8)
+    if sep:
+        rows[np.arange(n_tok), lens] = 32
     counts = np.zeros(words.n, dtype=np.int64)
     blocks: list[bytes] = []
     total = 0
@@ -108,9 +279,9 @@ def make_text(
         k = rng.integers(8, 18, size=s)
         draw = ranks.draw(rng, int(k.sum()))
         ins = rng.random(size=s) < 0.6
-        at = rng.integers(1, k)  # the punctuation's place among the words
-        pmark = rng.integers(0, len(PUNCT), size=s)
-        fin = final[rng.integers(0, 3, size=s)]
+        at = rng.integers(1, k)  # the mark's place among the words
+        pmark = rng.integers(0, len(marks), size=s)
+        fin = finals[rng.integers(0, finals.shape[0], size=s)]
 
         m = k + ins  # elements a sentence
         e_start = np.zeros(s, dtype=np.int64)
@@ -126,19 +297,29 @@ def make_text(
         mat = rows[tok]
         tl = lens[tok]
         ends = e_start + m - 1  # each sentence's last element
-        mat[ends, tl[ends]] = fin
-        mat[ends, tl[ends] + 1] = 10
-        out_len = tl + 1
-        out_len[ends] += 1
+        for j in range(n_fin):
+            mat[ends, tl[ends] + j] = fin[:, j]
+        mat[ends, tl[ends] + n_fin] = 10
+        out_len = tl + sep
+        out_len[ends] = tl[ends] + n_fin + 1
         out = mat[col[None, :] < out_len[:, None]]
 
         n_out = out.shape[0]
         keep = min(n_out, size_bytes - total)
+        if whole_lines and keep < n_out:
+            nl = np.flatnonzero(out[:keep] == 10)
+            keep = int(nl[-1]) + 1 if nl.size else 0
+            size_bytes = total + keep  # the last block
         whole = ~is_p & (np.cumsum(out_len) - out_len + tl <= keep)
         counts += np.bincount(tok[whole], minlength=n_tok)[: words.n]
         blocks.append(out[:keep].tobytes())
         total += keep
     return b"".join(blocks), counts
+
+
+# bert's token lengths, 1 to 14 and over: shares of the prefix and the ## pieces.
+PREFIX_HIST = [0.02, 0.04, 0.08, 0.12, 0.14, 0.14, 0.13, 0.11, 0.08, 0.06, 0.04, 0.02, 0.01, 0.01]
+CONT_HIST = [0.15, 0.25, 0.20, 0.15, 0.10, 0.07, 0.04, 0.02, 0.01, 0.005, 0.005, 0.0, 0.0, 0.0]
 
 
 def make_vocab_bert(words: WordTypes, counts: np.ndarray, chars: list[str],
@@ -227,6 +408,17 @@ def make_vocab_bert(words: WordTypes, counts: np.ndarray, chars: list[str],
         text = mat[r, s : s + int(p_len[i])].tobytes().decode("ascii")
         return "##" + text if p_cont[i] else text
 
+    vocab, seen = _first_lines(chars)
+    # Only one-letter pieces can be among those already in.
+    one = ranked[p_len[ranked] == 1]
+    ranked = ranked[~np.isin(ranked, one[[piece(int(i)) in seen for i in one]])]
+    chosen = _by_quota(ranked, p_cont[ranked], p_len[ranked], vocab_size - len(vocab))
+    return vocab + [piece(int(i)) for i in chosen]
+
+
+def _first_lines(chars: list[str]) -> tuple[list[str], set[str]]:
+    """The vocab's first lines and their set: 5 specials, 100 [unusedN]
+    slots, punctuation, and each character bare and (but punctuation) ##."""
     vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
     vocab += [f"[unused{i}]" for i in range(100)]
     seen = set(vocab)
@@ -235,44 +427,175 @@ def make_vocab_bert(words: WordTypes, counts: np.ndarray, chars: list[str],
         if cand not in seen:
             vocab.append(cand)
             seen.add(cand)
-    # Only one-letter pieces can be among those already in.
-    one = ranked[p_len[ranked] == 1]
-    ranked = ranked[~np.isin(ranked, one[[piece(int(i)) in seen for i in one]])]
+    return vocab, seen
 
-    prefix_hist = [0.02, 0.04, 0.08, 0.12, 0.14, 0.14, 0.13, 0.11,
-                   0.08, 0.06, 0.04, 0.02, 0.01, 0.01]
-    cont_hist = [0.15, 0.25, 0.20, 0.15, 0.10, 0.07, 0.04, 0.02,
-                 0.01, 0.005, 0.005, 0.0, 0.0, 0.0]
-    remaining = vocab_size - len(vocab)
+
+def _by_quota(ranked: np.ndarray, cont: np.ndarray, length: np.ndarray, remaining: int) -> np.ndarray:
+    """The pieces of `ranked` (each a ## piece or not, of a length) that
+    fill `remaining` lines: ~22% of them ## pieces, each kind under
+    per-length quotas after bert's token lengths."""
     n_cont = int(remaining * 0.22)
-    n_prefix = remaining - n_cont
-    hist = np.array([prefix_hist, cont_hist])
-    quota = np.floor(np.array([n_prefix, n_cont])[:, None] * hist).astype(np.int64)
+    quota = np.floor(np.array([remaining - n_cont, n_cont])[:, None]
+                     * np.array([PREFIX_HIST, CONT_HIST])).astype(np.int64)
     # The original walks the ranked pieces once: a piece is taken while
     # its kind and length (14 and over as one) have quota left, and the
     # quotas sum to no more than the room, so the walk never stops early;
     # then the passed-over pieces fill the rest in rank order.
-    cat = p_cont[ranked] * 14 + np.minimum(p_len[ranked], 14) - 1
+    cat = cont * 14 + np.minimum(length, 14) - 1
     by_cat = np.argsort(cat, kind="stable")
     cat_first = np.searchsorted(cat[by_cat], np.arange(28))
     rank_in_cat = np.empty(ranked.shape[0], np.int64)
     rank_in_cat[by_cat] = np.arange(ranked.shape[0]) - cat_first[cat[by_cat]]
     within = rank_in_cat < quota.reshape(-1)[cat]
-    room = max(vocab_size - len(vocab) - int(within.sum()), 0)
-    chosen = np.concatenate([ranked[within], ranked[~within][:room]])
-    return vocab + [piece(int(i)) for i in chosen]
+    room = max(remaining - int(within.sum()), 0)
+    return np.concatenate([ranked[within], ranked[~within][:room]])
+
+
+# Pieces are counted over the first UNIT_CAP codepoints of each unit.
+UNIT_CAP = 32
+LONGEST_PREFIX, LONGEST_CONT = 16, 14
+
+
+def _pack(codes: np.ndarray, bits: int) -> np.ndarray:
+    """Rows of codes (each < 2**bits) as keys: one int64 for up to 63 // bits
+    codes, a byte string of several otherwise; equal rows, equal keys."""
+    per = 63 // bits
+    k = -(-codes.shape[1] // per)
+    words = np.zeros((codes.shape[0], k), np.int64)
+    for j in range(codes.shape[1]):
+        words[:, j // per] |= codes[:, j].astype(np.int64) << (bits * (j % per))
+    return words[:, 0] if k == 1 else np.ascontiguousarray(words).view(np.dtype((np.void, 8 * k))).ravel()
+
+
+def make_vocab_units(sample: bytes, vocab_size: int) -> list[str]:
+    """A bert-shaped WordPiece vocab of any script, by `make_vocab_bert`'s
+    rules: 5 specials and 100 [unusedN] slots, every character of the
+    sample in bare and ## form, then the most frequent pieces, ~22% of
+    them ## continuations, under the same per-length quotas.  Pieces are
+    counted over units as the reference splits the text: a space,
+    punctuation and each CJK ideograph are boundaries, so a unit is a run
+    of other characters; each unit gives its prefixes (up to 16
+    codepoints, at its count) and its inner substrings (up to 14, at a
+    quarter of it), ties in the order the units are first met.  Where the
+    pieces do not fill the vocab, CJK ideographs the sample lacks do,
+    bare then ##, in codepoint order.  Exactly `vocab_size` distinct
+    lines, or ValueError where even those do not fill it."""
+    cps = np.frombuffer(sample.decode("utf-8").encode("utf-32-le"), "<u4").astype(np.int64)
+    space, spacing = classes(cps)
+    vocab, seen = _first_lines([chr(c) for c in np.unique(cps[~space])])
+
+    # The distinct units in the order first met, their counts and codes.
+    word = ~spacing
+    starts = np.flatnonzero(word & ~np.concatenate([[False], word[:-1]]))
+    ends = np.flatnonzero(word & ~np.concatenate([word[1:], [False]])) + 1
+    alphabet = np.unique(cps[word])
+    bits = max(int(alphabet.shape[0]).bit_length(), 1)
+    code = np.zeros(cps.shape[0] + 1, np.int64)
+    code[:-1][word] = np.searchsorted(alphabet, cps[word]) + 1
+    ulen = np.minimum(ends - starts, UNIT_CAP)
+    width = int(ulen.max()) if ulen.size else 1
+    col = np.arange(width)
+    at = np.where(col[None, :] < ulen[:, None], starts[:, None] + col[None, :], cps.shape[0])
+    units = code[at]  # 0 past each unit's end
+    _, first, inverse = np.unique(_pack(units, bits), return_index=True, return_inverse=True)
+    count = np.bincount(inverse.ravel())
+    order = np.argsort(first, kind="stable")
+    units, count, ulen = units[first[order]], count[order], ulen[first[order]]
+    rows = np.arange(units.shape[0])
+
+    # Each distinct piece of each kind and length: its total weight, its
+    # first place in the order the units give them, and one place it is at.
+    per_unit = LONGEST_PREFIX + (width - 1) * LONGEST_CONT
+    found = []  # (total, seq, cont, length, row, start)
+
+    def gather(cont: int, length: int, places: list[tuple[np.ndarray, int, np.ndarray]]) -> None:
+        if not sum(p[0].shape[0] for p in places):
+            return
+        r = np.concatenate([p[0] for p in places])
+        st = np.concatenate([np.full(p[0].shape[0], p[1]) for p in places])
+        seq = np.concatenate([p[2] for p in places])
+        keys = _pack(units[r[:, None], st[:, None] + np.arange(length)[None, :]], bits)
+        _, idx, inv = np.unique(keys, return_index=True, return_inverse=True)
+        inv = inv.ravel()
+        total = np.bincount(inv, weights=count[r] / (4.0 if cont else 1.0))
+        first_seq = np.full(idx.shape[0], np.iinfo(np.int64).max)
+        np.minimum.at(first_seq, inv, seq)
+        found.append((total, first_seq, np.full(idx.shape[0], cont), np.full(idx.shape[0], length),
+                      r[idx], st[idx]))
+
+    for length in range(1, LONGEST_PREFIX + 1):
+        r = rows[ulen >= length]
+        gather(0, length, [(r, 0, r * per_unit + length - 1)])
+    for length in range(1, LONGEST_CONT + 1):
+        places = []
+        for st in range(1, width):
+            r = rows[ulen - st >= length]
+            places.append((r, st, r * per_unit + LONGEST_PREFIX + (st - 1) * LONGEST_CONT + length - 1))
+        gather(1, length, places)
+    cols = [np.concatenate(f) for f in zip(*found)] if found else [np.zeros(0, np.int64)] * 6
+    total, seq, p_cont, p_len, p_row, p_start = cols
+    ranked = np.lexsort((seq, -total))
+
+    def piece(i: int) -> str:
+        row, start = p_row[i], p_start[i]
+        text = "".join(chr(int(alphabet[c - 1])) for c in units[row, start : start + p_len[i]])
+        return "##" + text if p_cont[i] else text
+
+    one = ranked[p_len[ranked] == 1]  # only one-codepoint pieces can be in already
+    ranked = ranked[~np.isin(ranked, one[[piece(int(i)) in seen for i in one]])]
+    chosen = _by_quota(ranked, p_cont[ranked], p_len[ranked], vocab_size - len(vocab))
+    vocab += [piece(int(i)) for i in chosen]
+    if len(vocab) < vocab_size:
+        lacking = [chr(c) for c in range(IDEOGRAPHS[0], IDEOGRAPHS[1] + 1) if chr(c) not in seen]
+        vocab += (lacking + ["##" + c for c in lacking])[: vocab_size - len(vocab)]
+    if len(vocab) != vocab_size:
+        raise ValueError(f"the sample's pieces and the CJK block fill {len(vocab)} of {vocab_size} lines")
+    return vocab
 
 
 class Corpus:
     """One seed's pool of text and the vocab built from a training sample
-    of the same law drawn apart from it (`spec`: a traffic mix's "corpus")."""
+    drawn apart from it (`spec`: a traffic mix's "corpus": "lang", one of
+    LANGS, "word_types", "zipf_exponent", "pool_bytes" and
+    "vocab_sample_bytes").
 
-    def __init__(self, spec: dict, seed: int, vocab_size: int):
-        words = WordTypes(rng_for(seed, STREAM_WORDS), int(spec["word_types"]))
+    Without `vocab_sample` the sample is of the mix's language and law
+    (for en, `make_vocab_bert` builds the vocab, as it always has).  With
+    it (a share of the sample's bytes for each language), the mix's
+    language is drawn from the pool's word types and law, each other one
+    from SAMPLE_WORD_TYPES types of its own under the same seed, and
+    `make_vocab_units` builds the vocab from them all."""
+
+    def __init__(self, spec: dict, seed: int, vocab_size: int, vocab_sample: dict | None = None):
+        lang = spec["lang"]
+        if lang not in LANGS:
+            raise ValueError(f"unknown language {lang!r}; the generator knows {', '.join(LANGS)}")
+        words = words_of(lang, int(spec["word_types"]), rng_for(seed, STREAM_WORDS))
         exponent = float(spec["zipf_exponent"])
-        self.pool, _ = make_text(rng_for(seed, STREAM_POOL), words,
-                                 int(spec["pool_bytes"]), exponent)
-        sample, counts = make_text(rng_for(seed, STREAM_VOCAB_SAMPLE), words,
-                                   int(spec["vocab_sample_bytes"]), exponent)
-        chars = sorted(set(sample.decode("ascii")) - set(" \n"))
-        self.vocab_lines = make_vocab_bert(words, counts, chars, vocab_size)
+        self.pool, _ = make_text(rng_for(seed, STREAM_POOL), words, int(spec["pool_bytes"]), exponent,
+                                 frame=FRAMES[lang], whole_lines=lang != "en")
+        sample_bytes = int(spec["vocab_sample_bytes"])
+        if vocab_sample is None and lang == "en":
+            sample, counts = make_text(rng_for(seed, STREAM_VOCAB_SAMPLE), words, sample_bytes, exponent)
+            chars = sorted(set(sample.decode("ascii")) - set(" \n"))
+            self.vocab_lines = make_vocab_bert(words, counts, chars, vocab_size)
+            return
+        shares = vocab_sample or {lang: 1.0}
+        unknown = set(shares) - set(LANGS)
+        if unknown or not all(float(v) > 0 for v in shares.values()):
+            raise ValueError(f"vocab_sample: languages of {', '.join(LANGS)} with shares above 0: {shares}")
+        whole = sum(float(v) for v in shares.values())
+        parts = []
+        for i, other in enumerate(LANGS):
+            if other not in shares:
+                continue
+            if other == lang:
+                w, law = words, exponent
+            else:
+                w = words_of(other, SAMPLE_WORD_TYPES, rng_for(seed, STREAM_WORDS, i + 1))
+                law = SAMPLE_ZIPF_EXPONENT
+            part, _ = make_text(rng_for(seed, STREAM_VOCAB_SAMPLE, i + 1), w,
+                                round(sample_bytes * float(shares[other]) / whole), law,
+                                frame=FRAMES[other], whole_lines=True)
+            parts.append(part)
+        self.vocab_lines = make_vocab_units(b"".join(parts), vocab_size)

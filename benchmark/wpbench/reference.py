@@ -9,7 +9,11 @@ and the vocab's lines alone.
 
 The loop never crosses a space and starts afresh after one, so the ids of
 a document are the ids of its space-separated runs in order: each distinct
-run is encoded once and the stream is expanded from the run ids.
+run is encoded once and the stream is expanded from the run ids.  Inside a
+run it starts afresh at every other spacing character too (punctuation, a
+CJK ideograph: no match, [UNK] skip or rollback crosses into one), so a run
+is the concatenation of its segments, each a spacing character with the
+non-spacing ones after it, and each distinct segment is encoded once.
 """
 
 from __future__ import annotations
@@ -29,6 +33,24 @@ _PUNCT = frozenset(
 )
 _CHINESE = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
             (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+_PUNCT_CLASS = "".join(re.escape(chr(c)) for c in sorted(_PUNCT))
+_CJK_CLASS = "".join(f"{chr(lo)}-{chr(hi)}" for lo, hi in _CHINESE)
+# A segment of a run: a spacing character and the non-spacing ones after
+# it, or the non-spacing characters that open the run.
+_SEGMENT = re.compile(f"[{_PUNCT_CLASS}{_CJK_CLASS}][^{_PUNCT_CLASS}{_CJK_CLASS}]*"
+                      f"|[^{_PUNCT_CLASS}{_CJK_CLASS}]+")
+
+
+def classes(cps: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(space, spacing) masks of an array of codepoints: a space, and a
+    space, a punctuation mark or a CJK ideograph (`is_spacing`)."""
+    space = np.isin(cps, [ord(c) for c in SPACES])
+    spacing = space | np.isin(cps, list(_PUNCT))
+    for lo, hi in _CHINESE:
+        spacing |= (cps >= lo) & (cps <= hi)
+    return space, spacing
 
 
 def is_punct(ch: str) -> bool:
@@ -77,9 +99,21 @@ class Reference:
             self.max_len = max(self.max_len, len(word))
         self.longest = self.max_len if longest_match is None else min(self.max_len, longest_match)
         self._spacing: dict[str, bool] = {}
+        self._segments: dict[str, list[int]] = {}
 
     def encode_run(self, w: str) -> list[int]:
-        """The ids of one run of non-space characters."""
+        """The ids of one run of non-space characters, segment by segment."""
+        done = self._segments
+        ids: list[int] = []
+        for seg in _SEGMENT.findall(w):
+            got = done.get(seg)
+            if got is None:
+                got = done[seg] = self.encode_segment(seg)
+            ids += got
+        return ids
+
+    def encode_segment(self, w: str) -> list[int]:
+        """The ids of a run of non-space characters, by the loop itself."""
         spacing = self._spacing
         for c in w:
             if c not in spacing:
