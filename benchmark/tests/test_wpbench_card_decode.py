@@ -46,7 +46,7 @@ def test_an_empty_window_reads_nothing():
 
 def test_the_entry():
     entry = [m for m in cell.Cell(CELL).per_layer if m["name"] == NAME]
-    assert entry and entry[0]["moves"] == "encode_MBps" and entry[0]["workloads"] == [CELL]
+    assert entry and entry[0]["moves"] == "device_memory_peak_MB" and entry[0]["workloads"] == [CELL]
 
 
 def test_the_traced_cell_on_the_cpu_reads_0(small_root):

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 from conftest import BENCH
 
-from wpbench.corpus import (Corpus, WordTypes, make_text, make_vocab_bert, make_vocab_units, rng_for,
-                            words_of, FRAMES, IDEOGRAPHS, LONGEST_CONT, LONGEST_PREFIX, UNIT_CAP)
+from wpbench.corpus import (Corpus, Ranks, WordTypes, language, make_text, make_vocab_bert, make_vocab_units,
+                            rng_for, CYRILLIC, CYRILLIC_FREQ, FRAMES, IDEOGRAPHS, LONGEST_CONT, LONGEST_PREFIX,
+                            UNIT_CAP)
 from wpbench.reference import Reference, classes, is_spacing
 from wpbench.traffic import N_DOCS, Documents, size_set
 
@@ -90,7 +91,7 @@ def test_same_seed_same_corpus_other_seed_other_corpus():
 
 def test_text_shape_and_counts():
     words = WordTypes(rng_for(7, 0), 500)
-    text, counts = make_text(rng_for(7, 1), words, 50_000, 1.0)
+    text, counts = make_text(rng_for(7, 1), words, 50_000, Ranks.zipf(words.n, 1.0))
     assert len(text) == 50_000
     lines = text.decode("ascii").split("\n")[:-1]
     for line in lines:
@@ -110,7 +111,7 @@ def test_text_shape_and_counts():
 ])
 def test_vectorised_vocab_equals_the_loop(seed, types, size, vocab_size):
     words = WordTypes(rng_for(seed, 0), types)
-    text, counts = make_text(rng_for(seed, 2), words, size, 1.0)
+    text, counts = make_text(rng_for(seed, 2), words, size, Ranks.zipf(words.n, 1.0))
     chars = sorted(set(text.decode("ascii")) - set(" \n"))
     assert make_vocab_bert(words, counts, chars, vocab_size) == loop_vocab(words, counts, chars, vocab_size)
 
@@ -216,6 +217,53 @@ def test_a_language_has_its_shapes(lang):
           f"(longest {lens.max()}), built in {build_s:.2f} s of CPU")
 
 
+def codepoints(text: bytes) -> np.ndarray:
+    return np.frombuffer(text.decode("utf-8").encode("utf-32-le"), "<u4").astype(np.int64)
+
+
+def ideograph_ranks(c: Corpus) -> np.ndarray:
+    """The rank in the language's table of each ideograph of the pool; every
+    one has to be in the table."""
+    cps = codepoints(c.pool)
+    ideo = cps[(cps >= IDEOGRAPHS[0]) & (cps <= IDEOGRAPHS[1])]
+    table = c.language.ideographs
+    order = np.argsort(table)
+    rank = order[np.minimum(np.searchsorted(table[order], ideo), table.shape[0] - 1)]
+    assert ideo.shape[0] > 0 and np.all(table[rank] == ideo)
+    return rank
+
+
+@pytest.mark.parametrize("lang,types", [("zh", 8105), ("ja", 6355)])
+def test_the_ideographs_are_the_published_inventory(lang, types):
+    """zh: the 8,105 characters of the 通用规范汉字表; ja: the 6,355 kanji
+    of JIS X 0208."""
+    c = Corpus({**mix_corpus(lang), **SMALL}, 2**33 + 9, 28996)
+    assert c.language.ideographs.shape[0] == types == np.unique(c.language.ideographs).shape[0]
+    ideograph_ranks(c)
+
+
+@pytest.mark.parametrize("seed", [2**33 + 9, 2**31 + 77])
+def test_the_zh_ideographs_follow_the_published_coverage(seed):
+    """Of the running ideographs, the first 2,500 ranks hold 97.97% and the
+    first 3,500 hold 99.48% (现代汉语常用字表), within 0.3 and 0.2 points."""
+    rank = ideograph_ranks(Corpus({**mix_corpus("zh"), **SMALL}, seed, 28996))
+    top_2500, top_3500 = 100 * np.mean(rank < 2500), 100 * np.mean(rank < 3500)
+    print(f"zh: {rank.shape[0]} ideographs, {top_2500:.4f}% in the first 2,500 ranks, {top_3500:.4f}% in 3,500")
+    assert abs(top_2500 - 97.97) <= 0.3 and abs(top_3500 - 99.48) <= 0.2
+
+
+@pytest.mark.parametrize("seed", [2**33 + 9, 2**31 + 77])
+def test_the_ru_letters_follow_the_published_table(seed):
+    """Each letter's share of the running letters is CYRILLIC_FREQ's within
+    1 point."""
+    cps = codepoints(Corpus({**mix_corpus("ru"), **SMALL}, seed, 28996).pool)
+    letters = cps[np.isin(cps, CYRILLIC)]
+    share = 100 * (CYRILLIC[:, None] == letters[None, :]).mean(axis=1)
+    gap = np.abs(share - 100 * CYRILLIC_FREQ / CYRILLIC_FREQ.sum())
+    print(f"ru: {letters.shape[0]} letters, the widest gap {gap.max():.4f} points")
+    assert gap.max() <= 1.0
+
+
 @pytest.mark.parametrize("lang", ["ru", "zh", "ja"])
 def test_the_control_fails_on_a_language(lang):
     """The control (the reference's longest match capped under the vocab's
@@ -312,11 +360,10 @@ def loop_vocab_units(sample: bytes, vocab_size: int) -> list[str]:
 
 
 def sample_of(lang: str, seed: int, nbytes: int) -> bytes:
-    words = words_of(lang, 2000, rng_for(seed, 0))
-    return make_text(rng_for(seed, 2), words, nbytes, 1.0, frame=FRAMES[lang], whole_lines=True)[0]
+    return language(lang, 2000, 1.0, rng_for(seed, 0)).text(rng_for(seed, 2), nbytes)[0]
 
 
-@pytest.mark.parametrize("vocab_size", [3000, 28996])
+@pytest.mark.parametrize("vocab_size", [6000, 28996])
 @pytest.mark.parametrize("langs", [["ru"], ["zh"], ["ja"], ["en", "ru", "zh", "ja"]], ids="-".join)
 def test_the_units_vocab_equals_the_loop(langs, vocab_size):
     sample = b"".join(sample_of(lang, 21 + i, 60_000 // len(langs)) for i, lang in enumerate(langs))

@@ -73,10 +73,11 @@ def test_reader(name, want):
     assert read(name, records()) == pytest.approx(want)
 
 
-def test_the_window_rate_per_layer():
-    assert read("encode_MBps.fast", records()) == pytest.approx(50.0)
+@pytest.mark.parametrize("name", ["encode_MBps.fast", "encode_MBps.linear", "encode_MBps.stream"])
+def test_the_window_rate_per_layer(name):
+    assert read(name, records()) == pytest.approx(50.0)
     empty = dict(records(), window={"calls": 0, "bytes": 0, "seconds": 0.0})
-    assert read("encode_MBps.fast", empty) is None
+    assert read(name, empty) is None
 
 
 @pytest.mark.parametrize("name", [

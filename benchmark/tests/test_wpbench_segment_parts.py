@@ -45,7 +45,7 @@ def test_a_program_without_the_counter_reads_nothing(counters, segment_calls):
 
 def test_the_entry():
     entry = [m for m in cell.Cell(CELL).per_layer if m["name"] == NAME]
-    assert entry and entry[0]["moves"] == "encode_MBps" and entry[0]["workloads"] == [CELL]
+    assert entry and entry[0]["moves"] == "device_memory_peak_MB" and entry[0]["workloads"] == [CELL]
     assert entry[0]["layer"] == "host native" and entry[0]["source"] == "program_counter"
 
 

@@ -122,7 +122,7 @@ def test_the_cell_runs_on_the_cpu(small_root, traced):
     assert res["error"] is None and out["correct"] is True and out["failed"] == 0
     assert out["compared"]["ids_wrong"]["value"] == 0 and res["info"]["calls_checked"] >= 1
     if traced:  # on the CPU: the spans and the card's share of the decode (0), no kernel to read
-        assert set(out["metrics"]) == set(SPANS) | {"stream_card_decode_pct"}
+        assert set(out["metrics"]) == set(SPANS) | {"stream_card_decode_pct", "encode_MBps.stream"}
         assert out["metrics"]["stream_card_decode_pct"]["value"] == 0
     else:
         rate = {m["name"] for m in c.end_to_end if m["name"] == "encode_MBps"}

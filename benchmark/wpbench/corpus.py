@@ -5,28 +5,29 @@ A frozen, vectorised copy of `wordpiece_tpu_torch/bench/corpus.py`'s
 and the Zipf exponent as parameters, and three more languages.  The
 upstream harness tokenizes linguatools Wikipedia dumps in en, ru, ja and
 zh with bert's vocabs; without a network, the text is drawn instead, in
-the shapes of each dump, lower-case:
+the shapes of each dump, lower-case.  Each language's text is a sentence
+frame filled with elements drawn from one law over the running text:
 
 - en: sentences of 8-17 words, words of 1-16 letters at English letter
   frequencies, punctuation as the original generator places it;
-- ru: the same frame, words of 1-16 Cyrillic letters (а-я, ё) at Russian
-  letter frequencies, lengths poisson(5.2) + 1: 2 bytes a letter;
-- zh: sentences of 8-17 words with no spaces, each word 1-4 ideographs
-  of U+4E00-U+9FFF under a Zipf law over 8,000 characters, "，" inside and
-  "。" at the end;
-- ja: sentences of 8-17 phrases with no spaces, each a kanji word (1-3
-  ideographs under a Zipf law over 6,000) or, at a quarter of the ranks,
-  a katakana word, then 0-4 hiragana; "、" inside and "。" at the end.  Kana
-  and both marks are not spacing characters, so a hiragana tail and the
-  katakana words after it join into one unit, which can be longer than
-  the vocab's longest piece.
+- ru: the same frame, words of 1-16 Cyrillic letters (а-я, ё), 2 bytes a
+  letter, their letters and lengths split over the running words by the
+  published letter frequencies and 1 + poisson(5.2);
+- zh: sentences of 8-17 elements with no spaces, "，" inside and "。" at
+  the end; an element is one ideograph, drawn by the published coverage
+  of the common characters over the 8,105 of the 通用规范汉字表, or a
+  Latin word (en's letters and law) or a number of 1-4 digits;
+- ja: sentences of 8-17 phrases with no spaces, "、" inside and "。" at
+  the end; a phrase is a stem of 1-3 kanji (drawn one by one over the
+  6,355 of JIS X 0208) or a katakana word, then 0-4 hiragana, or a Latin
+  word or a number.  Kana and both marks are not spacing characters, so a
+  hiragana tail and the katakana words after it join into one unit,
+  which can be longer than the vocab's longest piece.
 
-In zh and ja, evenly spaced ranks of the word types are Latin words (en's
-law) or numbers of 1-4 digits, as a dump's names, abbreviations and years:
-units of up to 16 codepoints, alone between ideographs in zh, joined to
-the kana beside them in ja.
-
-Word types are ranked by a Zipf law in every language; every sentence
+The reference makes each CJK ideograph a unit of its own, so the
+ideographs are drawn one by one where the running text holds them: a
+word type holds a slot for each, and `Language.text` fills the slots.
+Everything else is drawn as word types ranked by a law; every sentence
 ends in a newline.  The sentences are assembled with numpy in blocks, so
 a 40 MB pool takes a few seconds and nothing is cached on disk.
 
@@ -49,28 +50,53 @@ LETTER_FREQ = np.array([12.7, 9.1, 8.2, 7.5, 7.0, 6.7, 6.3, 6.1, 6.0, 4.3, 4.0, 
                         2.4, 2.4, 2.2, 2.0, 2.0, 1.9, 1.5, 1.0, 0.8, 0.2, 0.15, 0.1, 0.07])
 PUNCT = [",", ".", "!", "?", ";", "-", ":"]
 CYRILLIC = np.array([ord(c) for c in "оеаинтсрвлкмдпуяыьгзбчйхжшюцщэфъё"])
-# Russian letter frequencies, in %.
+# Russian letter frequencies, in % of the letters of running text: the table
+# of ru.wikipedia's article "Частотность" (counted over the Russian National
+# Corpus), as published; cited without network access to check it.
 CYRILLIC_FREQ = np.array([10.97, 8.45, 8.01, 7.35, 6.70, 6.26, 5.47, 4.73, 4.54, 4.40, 3.49, 3.21,
                           2.98, 2.81, 2.62, 2.01, 1.90, 1.74, 1.70, 1.65, 1.59, 1.44, 1.21, 0.97,
                           0.94, 0.73, 0.64, 0.48, 0.36, 0.32, 0.26, 0.04, 0.04])
 IDEOGRAPHS = (0x4E00, 0x9FFF)
 HIRAGANA = (0x3041, 0x3096)
 KATAKANA = (0x30A1, 0x30FA)
+# A word type's place for an ideograph drawn where the running text holds
+# it: a private-use codepoint, three bytes in UTF-8 as every ideograph of
+# the block, and the only codepoint of the text whose lead byte is 0xEE.
+SLOT = 0xE000
+SLOT_LEAD = 0xEE
 
-# The shapes of ru, zh and ja: the one place they are set.  A mix gives
-# its language, word_types, zipf_exponent and sizes.  Sources: the Unicode
-# blocks, and CYRILLIC_FREQ, the table of ru.wikipedia's article
-# "Частотность" (from the Russian National Corpus).  Every number below is
-# guessed, with no source: a ru, zh or ja mix is not fit to be a cell
-# until its numbers have one (PERF.md §7).
-RU_LENGTH_MEAN = 5.2  # guessed: word lengths poisson(mean) + 1, at most 16
-ZH_CHAR_TYPES = 8000  # guessed
-ZH_WORD_LEN_MIX = [0.3, 0.55, 0.1, 0.05]  # guessed: shares of words of 1-4 ideographs
-JA_KANJI_TYPES = 6000  # guessed
-JA_KANJI_LEN_MIX = [0.35, 0.5, 0.15]  # guessed: 1-3 kanji
-JA_TAIL_MIX = [0.2, 0.3, 0.25, 0.15, 0.1]  # guessed: 0-4 hiragana after a word
-JA_KATAKANA_SHARE, JA_KATAKANA_LEN = 0.25, (2, 8)  # guessed
-LATIN_SHARE, DIGIT_SHARE = 0.04, 0.03  # guessed: zh and ja word types that are ASCII
+# The shapes of ru, zh and ja: the one place they are set, each stated over
+# the running text.  A mix gives its language, word_types (the types of
+# each kind of word), zipf_exponent (their law) and sizes.  Each number
+# names its source (the document; the table or section; the figure as
+# published; types or running text) or is marked guessed: a mix is fit to
+# be a cell only when every number it uses has a source (PERF.md §7).
+RU_LENGTH_POISSON = 5.2  # guessed: running words of 1 + poisson(5.2) letters, at most 16
+
+# zh ideographs: (characters, share of the running ideographs) of each tier.
+# The inventory: the 通用规范汉字表 (State Council, 2013), 8,105 characters
+# in tiers of 3,500, 3,000 and 1,605.  The shares: the 现代汉语常用字表
+# (State Language Commission and State Education Commission, 1988), its note
+# on coverage: the 2,500 常用字 cover 97.97% of running text, the 1,000
+# 次常用字 1.51%, the 3,500 together 99.48% (running text, characters); the
+# 0.52% left falls on the 2013 table's other 4,605.  Assumed: the 1988
+# table's 3,500 are the 2013 table's first 3,500 ranks; the characters
+# themselves are a draw from the block, not the tables' own.
+ZH_TIERS = ((2500, 0.9797), (1000, 0.0151), (4605, 0.0052))
+# ja kanji: the inventory of JIS X 0208:1997, 6,355 kanji (level 1 2,965,
+# level 2 3,390).  guessed: one tier, for no published coverage figure is
+# named here.
+JA_KANJI_TIERS = ((6355, 1.0),)
+TIER_ZIPF_EXPONENT = 1.0  # guessed: the order inside a tier, P(rank r) ~ 1/r
+JA_KANJI_LEN_MIX = [0.35, 0.5, 0.15]  # guessed: shares of kanji stems of 1-3 kanji
+JA_TAIL_MIX = [0.2, 0.3, 0.25, 0.15, 0.1]  # guessed: shares of tails of 0-4 hiragana
+JA_KATAKANA_SHARE = 0.25  # guessed: the running phrases with a katakana stem
+JA_KATAKANA_LEN = (2, 8)  # guessed: its length, each alike
+KANA_ZIPF_EXPONENT = 1.0  # guessed: the kana of a type, by 1/rank over the block in a drawn order
+# zh and ja: the shares of the running elements (zh: an ideograph, ja: a
+# phrase, or either a Latin word or a number) that are Latin words, at en's
+# letters and law, and numbers of 1-4 digits, each length and digit alike.
+LATIN_SHARE, DIGIT_SHARE = 0.016, 0.010  # guessed, all of it
 # The word types and law of a multilingual sample's languages other than
 # the mix's own: the en mix's.
 SAMPLE_WORD_TYPES, SAMPLE_ZIPF_EXPONENT = 100_000, 1.0
@@ -111,6 +137,13 @@ class WordTypes:
         words._set(data, np.add.reduceat(nbytes, starts))
         return words
 
+    @classmethod
+    def joined(cls, parts: list["WordTypes"]) -> "WordTypes":
+        """The types of each part in turn."""
+        words = cls.__new__(cls)
+        words._set(np.concatenate([p.data for p in parts]), np.concatenate([np.diff(p.offs) for p in parts]))
+        return words
+
     def _set(self, data: np.ndarray, lens: np.ndarray) -> None:
         self.data = data
         self.offs = np.zeros(lens.shape[0] + 1, dtype=np.int64)
@@ -124,29 +157,52 @@ class WordTypes:
         return self.data[self.offs[i] : self.offs[i + 1]].tobytes().decode("utf-8")
 
 
-class ZipfRanks:
-    """Draws word-type indices with P(rank r) proportional to 1/r**exponent:
-    the inverse of the distribution function, started from a guide table
-    of 2**20 cells so that each draw reads a few entries."""
+def zipf_weights(n: int, exponent: float) -> np.ndarray:
+    """1/rank**exponent for ranks 1..n."""
+    return 1.0 / np.arange(1, n + 1, dtype=np.float64) ** exponent
+
+
+def tiered_weights(tiers, exponent: float) -> np.ndarray:
+    """Weights of ranks 1..sum(n) for tiers of (n, share): each tier holds
+    its share of the draws, spread over its ranks by 1/rank**exponent."""
+    w = zipf_weights(sum(n for n, _ in tiers), exponent)
+    edges = np.cumsum([0] + [n for n, _ in tiers])
+    for (_, share), a, b in zip(tiers, edges[:-1], edges[1:]):
+        w[a:b] *= share / w[a:b].sum()
+    return w
+
+
+class Ranks:
+    """Draws indices 0..n-1 with P(i) proportional to weights[i]: the
+    inverse of the distribution function, started from a guide table of
+    2**20 cells so that each draw reads a few entries; a draw still short
+    after WALK steps (many light types in one cell) is searched for."""
 
     GUIDE = 1 << 20
+    WALK = 8
 
-    def __init__(self, n: int, exponent: float):
-        p = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** exponent
-        self.cdf = np.cumsum(p)
+    def __init__(self, weights: np.ndarray):
+        self.cdf = np.cumsum(weights)
         self.cdf /= self.cdf[-1]
-        self.n = n
+        self.n = weights.shape[0]
         cells = np.arange(self.GUIDE, dtype=np.float64) / self.GUIDE
         self.guide = np.searchsorted(self.cdf, cells, side="right")
+
+    @classmethod
+    def zipf(cls, n: int, exponent: float) -> "Ranks":
+        return cls(zipf_weights(n, exponent))
 
     def draw(self, rng: np.random.Generator, size: int) -> np.ndarray:
         u = rng.random(size)
         idx = self.guide[(u * self.GUIDE).astype(np.int64)]
-        while True:  # the first index whose cdf exceeds u
-            ahead = np.flatnonzero(self.cdf[np.minimum(idx, self.n - 1)] <= u)
+        ahead = np.flatnonzero(self.cdf[np.minimum(idx, self.n - 1)] <= u)
+        for _ in range(self.WALK):  # the first index whose cdf exceeds u
             if ahead.size == 0:
                 return np.minimum(idx, self.n - 1)
             idx[ahead] += 1
+            ahead = ahead[self.cdf[np.minimum(idx[ahead], self.n - 1)] <= u[ahead]]
+        idx[ahead] = np.searchsorted(self.cdf, u[ahead], side="right")
+        return np.minimum(idx, self.n - 1)
 
 
 def _draw_from(rng: np.random.Generator, block: tuple[int, int], n: int) -> np.ndarray:
@@ -154,84 +210,83 @@ def _draw_from(rng: np.random.Generator, block: tuple[int, int], n: int) -> np.n
     return block[0] + rng.choice(block[1] - block[0] + 1, size=n, replace=False)
 
 
-def _every(n: int, share: float, offset: float = 0.0) -> np.ndarray:
-    """A mask of `n` ranks, `share` of them evenly spaced: the same ranks
-    for every seed."""
-    return np.diff(np.floor(np.arange(n + 1) * share + offset)) > 0
+def _mixture(kinds: list[tuple[WordTypes, np.ndarray, float]]) -> tuple[WordTypes, Ranks]:
+    """The word types of several kinds and one law over them: a kind
+    (words, weights, share) holds `share` of the running draws, spread
+    over its types by its weights."""
+    words = WordTypes.joined([k[0] for k in kinds])
+    return words, Ranks(np.concatenate([share * w / w.sum() for _, w, share in kinds]))
 
 
-def _with_ascii(rng: np.random.Generator, cps: np.ndarray, lens: np.ndarray) -> WordTypes:
-    """Word types from codepoints and lengths, with LATIN_SHARE of the ranks
-    made Latin words at en's law and DIGIT_SHARE numbers of 1-4 digits."""
-    n = lens.shape[0]
-    latin = _every(n, LATIN_SHARE)
-    digit = _every(n, DIGIT_SHARE, 0.5) & ~latin
-    new_lens = np.where(latin, np.clip(rng.poisson(4.7, size=n) + 1, 1, 16),
-                        np.where(digit, rng.integers(1, 5, size=n), lens))
-    old_starts = np.zeros(n, np.int64)
-    np.cumsum(lens[:-1], out=old_starts[1:])
-    starts = np.zeros(n, np.int64)
-    np.cumsum(new_lens[:-1], out=starts[1:])
-    word = np.repeat(np.arange(n), new_lens)
-    pos = np.arange(word.shape[0]) - starts[word]
-    out = np.empty(word.shape[0], np.int64)
-    kept = ~(latin | digit)[word]
-    out[kept] = cps[old_starts[word[kept]] + pos[kept]]
-    is_l, is_d = latin[word], digit[word]
-    p = LETTER_FREQ / LETTER_FREQ.sum()
-    out[is_l] = LETTERS[rng.choice(LETTERS.shape[0], size=int(is_l.sum()), p=p)]
-    out[is_d] = ord("0") + rng.integers(0, 10, size=int(is_d.sum()))
-    return WordTypes.of_codepoints(out, new_lens)
+def _numbers() -> tuple[WordTypes, np.ndarray]:
+    """Every number of 1-4 digits, leading zeros too, and their weights:
+    each length alike, each number of a length alike."""
+    parts, weights = [], []
+    for k in range(1, 5):
+        digits = (np.arange(10**k)[:, None] // 10 ** np.arange(k - 1, -1, -1)[None, :]) % 10
+        parts.append(WordTypes.of_codepoints((ord("0") + digits).ravel(), np.full(10**k, k)))
+        weights.append(np.full(10**k, 0.1**k))
+    return WordTypes.joined(parts), np.concatenate(weights)
 
 
-def ru_words(rng: np.random.Generator, n: int) -> WordTypes:
-    lens = np.clip(rng.poisson(RU_LENGTH_MEAN, size=n) + 1, 1, 16)
-    freq = CYRILLIC_FREQ / CYRILLIC_FREQ.sum()
-    return WordTypes.of_codepoints(CYRILLIC[rng.choice(CYRILLIC.shape[0], size=int(lens.sum()), p=freq)],
-                                   lens)
+def _ascii_kinds(rng: np.random.Generator, n: int, exponent: float) -> list:
+    """The ASCII kinds of zh and ja: `n` Latin word types (en's) under the
+    mix's law, and the numbers."""
+    numbers, weights = _numbers()
+    return [(WordTypes(rng, n), zipf_weights(n, exponent), LATIN_SHARE), (numbers, weights, DIGIT_SHARE)]
 
 
-def zh_words(rng: np.random.Generator, n: int) -> WordTypes:
-    chars = _draw_from(rng, IDEOGRAPHS, ZH_CHAR_TYPES)  # by rank
-    mix = np.asarray(ZH_WORD_LEN_MIX)
-    lens = rng.choice(mix.shape[0], size=n, p=mix / mix.sum()) + 1
-    ranks = ZipfRanks(ZH_CHAR_TYPES, 1.0).draw(rng, int(lens.sum()))
-    return _with_ascii(rng, chars[ranks], lens)
+def _stratified(rng: np.random.Generator, weights: np.ndarray, probs: np.ndarray) -> np.ndarray:
+    """A category for each item, such that the items' weights split among
+    the categories as `probs` does: the items in a drawn order, each taking
+    the category in which the middle of its share of the cumulative weight
+    falls.  So a share stated over the running text holds in it, where
+    drawing each item's category alone would leave the few heaviest items
+    to move it by points."""
+    order = rng.permutation(weights.shape[0])
+    w = weights[order]
+    mid = (np.cumsum(w) - w / 2) / w.sum()
+    cat = np.empty(weights.shape[0], np.int64)
+    cat[order] = np.minimum(np.searchsorted(np.cumsum(probs) / probs.sum(), mid, side="right"), probs.shape[0] - 1)
+    return cat
 
 
-def ja_words(rng: np.random.Generator, n: int) -> WordTypes:
-    """Phrase types: a kanji word or a katakana word, then a hiragana tail."""
-    kanji = _draw_from(rng, IDEOGRAPHS, JA_KANJI_TYPES)
-    hira = _draw_from(rng, HIRAGANA, HIRAGANA[1] - HIRAGANA[0] + 1)
-    kata = _draw_from(rng, KATAKANA, KATAKANA[1] - KATAKANA[0] + 1)
-    is_kata = _every(n, JA_KATAKANA_SHARE, 0.25)
+def ru_words(rng: np.random.Generator, n: int, exponent: float) -> WordTypes:
+    """`n` word types under Zipf `exponent`, their lengths and letters
+    split over the running words by RU_LENGTH_POISSON and CYRILLIC_FREQ."""
+    k = np.arange(15)
+    pmf = np.exp(k * np.log(RU_LENGTH_POISSON) - RU_LENGTH_POISSON - np.cumsum(np.log(np.maximum(k, 1))))
+    weights = zipf_weights(n, exponent)
+    lens = 1 + _stratified(rng, weights, np.append(pmf, max(1.0 - pmf.sum(), 0.0)))
+    letters = _stratified(rng, np.repeat(weights, lens), CYRILLIC_FREQ)
+    return WordTypes.of_codepoints(CYRILLIC[letters], lens)
+
+
+def ja_phrases(rng: np.random.Generator, n: int, katakana: bool, kata: np.ndarray,
+               hira: np.ndarray) -> WordTypes:
+    """`n` phrase types: a stem of 1-3 kanji slots or a katakana word, then
+    a hiragana tail; the kana of each kind by KANA_ZIPF_EXPONENT."""
     kmix, tmix = np.asarray(JA_KANJI_LEN_MIX), np.asarray(JA_TAIL_MIX)
-    stem = np.where(is_kata, rng.integers(JA_KATAKANA_LEN[0], JA_KATAKANA_LEN[1] + 1, size=n),
-                    rng.choice(kmix.shape[0], size=n, p=kmix / kmix.sum()) + 1)
-    tail = rng.choice(tmix.shape[0], size=n, p=tmix / tmix.sum())
-    lens = stem + tail
+    if katakana:
+        stem = rng.integers(JA_KATAKANA_LEN[0], JA_KATAKANA_LEN[1] + 1, size=n)
+    else:
+        stem = rng.choice(kmix.shape[0], size=n, p=kmix / kmix.sum()) + 1
+    lens = stem + rng.choice(tmix.shape[0], size=n, p=tmix / tmix.sum())
     starts = np.zeros(n, np.int64)
     np.cumsum(lens[:-1], out=starts[1:])
     word = np.repeat(np.arange(n), lens)
     in_stem = np.arange(word.shape[0]) - starts[word] < stem[word]
-    cps = np.empty(word.shape[0], np.int64)
-    for where, chars in ((in_stem & ~is_kata[word], kanji), (in_stem & is_kata[word], kata),
-                         (~in_stem, hira)):
-        cps[where] = chars[ZipfRanks(chars.shape[0], 1.0).draw(rng, int(where.sum()))]
-    return _with_ascii(rng, cps, lens)
-
-
-def words_of(lang: str, n: int, rng: np.random.Generator) -> WordTypes:
-    """`n` word types of a language."""
-    if lang == "en":
-        return WordTypes(rng, n)
-    return {"ru": ru_words, "zh": zh_words, "ja": ja_words}[lang](rng, n)
+    cps = np.full(word.shape[0], SLOT, np.int64)  # a kanji stem keeps its slots
+    for where, chars in ((in_stem, kata), (~in_stem, hira)) if katakana else ((~in_stem, hira),):
+        cps[where] = chars[Ranks.zipf(chars.shape[0], KANA_ZIPF_EXPONENT).draw(rng, int(where.sum()))]
+    return WordTypes.of_codepoints(cps, lens)
 
 
 class Frame(NamedTuple):
     """How a language's sentences are put together: words joined by a space
     or by nothing, one mark of `marks` inside with probability 0.6, one of
-    `finals` (all of one byte length) and a newline at the end."""
+    `finals` (all of one byte length) and a newline at the end.  The
+    original (en) generator's frame; guessed for ru, zh and ja."""
 
     spaced: bool
     marks: list[str]
@@ -242,19 +297,63 @@ FRAMES = {"en": Frame(True, PUNCT, [",", ".", "!"]), "ru": Frame(True, PUNCT, ["
           "zh": Frame(False, ["，"], ["。"]), "ja": Frame(False, ["、"], ["。"])}
 
 
+class Language(NamedTuple):
+    """What one language's text is drawn from: its frame, word types and
+    their law over the running text, and for zh and ja the ideographs (by
+    rank) that fill the types' slots one by one, under their own law."""
+
+    frame: Frame
+    words: WordTypes
+    ranks: Ranks
+    ideographs: np.ndarray | None = None
+    ideograph_ranks: Ranks | None = None
+
+    def text(self, rng: np.random.Generator, size_bytes: int, *,
+             whole_lines: bool = True) -> tuple[bytes, np.ndarray]:
+        """`make_text`'s text and counts, each slot filled."""
+        text, counts = make_text(rng, self.words, size_bytes, self.ranks, frame=self.frame,
+                                 whole_lines=whole_lines)
+        if self.ideographs is None:
+            return text, counts
+        buf = np.frombuffer(text, np.uint8).copy()
+        at = np.flatnonzero(buf == SLOT_LEAD)
+        data, _ = utf8(self.ideographs[self.ideograph_ranks.draw(rng, at.shape[0])])
+        buf[at[:, None] + np.arange(3)[None, :]] = data.reshape(-1, 3)
+        return buf.tobytes(), counts
+
+
+def language(lang: str, n: int, exponent: float, rng: np.random.Generator) -> Language:
+    """A language with `n` word types of each kind under Zipf `exponent`."""
+    if lang == "en":
+        return Language(FRAMES[lang], WordTypes(rng, n), Ranks.zipf(n, exponent))
+    if lang == "ru":
+        return Language(FRAMES[lang], ru_words(rng, n, exponent), Ranks.zipf(n, exponent))
+    tiers = {"zh": ZH_TIERS, "ja": JA_KANJI_TIERS}[lang]
+    ideographs = _draw_from(rng, IDEOGRAPHS, sum(t[0] for t in tiers))  # by rank
+    own = 1.0 - LATIN_SHARE - DIGIT_SHARE
+    if lang == "zh":
+        kinds = [(WordTypes.of_codepoints(np.array([SLOT]), np.array([1])), np.ones(1), own)]
+    else:
+        hira = _draw_from(rng, HIRAGANA, HIRAGANA[1] - HIRAGANA[0] + 1)
+        kata = _draw_from(rng, KATAKANA, KATAKANA[1] - KATAKANA[0] + 1)
+        kinds = [(ja_phrases(rng, n, katakana, kata, hira), zipf_weights(n, exponent), share)
+                 for katakana, share in ((False, own - JA_KATAKANA_SHARE), (True, JA_KATAKANA_SHARE))]
+    words, ranks = _mixture(kinds + _ascii_kinds(rng, n, exponent))
+    return Language(FRAMES[lang], words, ranks, ideographs, Ranks(tiered_weights(tiers, TIER_ZIPF_EXPONENT)))
+
+
 def make_text(
-    rng: np.random.Generator, words: WordTypes, size_bytes: int, exponent: float,
+    rng: np.random.Generator, words: WordTypes, size_bytes: int, ranks: Ranks,
     *, frame: Frame = FRAMES["en"], whole_lines: bool = False, block_sentences: int = 50_000,
 ) -> tuple[bytes, np.ndarray]:
     """`size_bytes` of text and the count of each word type in it.
 
-    Each line is one sentence: k (8-17) words, joined by spaces where the
+    Each line is one sentence: k (8-17) words drawn by `ranks`, joined by spaces where the
     frame says so; with probability 0.6 one mark of the frame stands as
     its own word at a position 1..k-1; the line ends in one of the
     frame's finals and a newline.  The text is cut at `size_bytes`, so
     its last word may be cut short (it is not counted); with
     `whole_lines`, at the last newline before it."""
-    ranks = ZipfRanks(words.n, exponent)
     marks = [m.encode("utf-8") for m in frame.marks]
     n_tok = words.n + len(marks)
     lens = np.concatenate([np.diff(words.offs), [len(m) for m in marks]]).astype(np.int64)
@@ -536,15 +635,20 @@ def make_vocab_units(sample: bytes, vocab_size: int) -> list[str]:
     total, seq, p_cont, p_len, p_row, p_start = cols
     ranked = np.lexsort((seq, -total))
 
-    def piece(i: int) -> str:
-        row, start = p_row[i], p_start[i]
-        text = "".join(chr(int(alphabet[c - 1])) for c in units[row, start : start + p_len[i]])
-        return "##" + text if p_cont[i] else text
+    def pieces(idx: np.ndarray) -> list[str]:
+        """The pieces at `idx`, spelled from the place each was found: the
+        rows' codepoints, each row ended by 0s, decoded at once."""
+        col = np.arange(int(p_len[idx].max(initial=0)) + 1)
+        inside = col[None, :] < p_len[idx, None]
+        codes = units[p_row[idx, None], np.where(inside, p_start[idx, None] + col[None, :], 0)]
+        cps = np.where(inside, alphabet[codes - 1], 0).astype("<u4")
+        texts = [t for t in cps.tobytes().decode("utf-32-le").split("\0") if t]
+        return ["##" + t if c else t for t, c in zip(texts, p_cont[idx])]
 
     one = ranked[p_len[ranked] == 1]  # only one-codepoint pieces can be in already
-    ranked = ranked[~np.isin(ranked, one[[piece(int(i)) in seen for i in one]])]
+    ranked = ranked[~np.isin(ranked, one[np.array([t in seen for t in pieces(one)], dtype=bool)])]
     chosen = _by_quota(ranked, p_cont[ranked], p_len[ranked], vocab_size - len(vocab))
-    vocab += [piece(int(i)) for i in chosen]
+    vocab += pieces(chosen)
     if len(vocab) < vocab_size:
         lacking = [chr(c) for c in range(IDEOGRAPHS[0], IDEOGRAPHS[1] + 1) if chr(c) not in seen]
         vocab += (lacking + ["##" + c for c in lacking])[: vocab_size - len(vocab)]
@@ -557,7 +661,7 @@ class Corpus:
     """One seed's pool of text and the vocab built from a training sample
     drawn apart from it (`spec`: a traffic mix's "corpus": "lang", one of
     LANGS, "word_types", "zipf_exponent", "pool_bytes" and
-    "vocab_sample_bytes").
+    "vocab_sample_bytes"); `language` is what the pool is drawn from.
 
     Without `vocab_sample` the sample is of the mix's language and law
     (for en, `make_vocab_bert` builds the vocab, as it always has).  With
@@ -570,15 +674,16 @@ class Corpus:
         lang = spec["lang"]
         if lang not in LANGS:
             raise ValueError(f"unknown language {lang!r}; the generator knows {', '.join(LANGS)}")
-        words = words_of(lang, int(spec["word_types"]), rng_for(seed, STREAM_WORDS))
-        exponent = float(spec["zipf_exponent"])
-        self.pool, _ = make_text(rng_for(seed, STREAM_POOL), words, int(spec["pool_bytes"]), exponent,
-                                 frame=FRAMES[lang], whole_lines=lang != "en")
+        self.language = language(lang, int(spec["word_types"]), float(spec["zipf_exponent"]),
+                                 rng_for(seed, STREAM_WORDS))
+        self.pool, _ = self.language.text(rng_for(seed, STREAM_POOL), int(spec["pool_bytes"]),
+                                          whole_lines=lang != "en")
         sample_bytes = int(spec["vocab_sample_bytes"])
         if vocab_sample is None and lang == "en":
-            sample, counts = make_text(rng_for(seed, STREAM_VOCAB_SAMPLE), words, sample_bytes, exponent)
+            sample, counts = self.language.text(rng_for(seed, STREAM_VOCAB_SAMPLE), sample_bytes,
+                                                whole_lines=False)
             chars = sorted(set(sample.decode("ascii")) - set(" \n"))
-            self.vocab_lines = make_vocab_bert(words, counts, chars, vocab_size)
+            self.vocab_lines = make_vocab_bert(self.language.words, counts, chars, vocab_size)
             return
         shares = vocab_sample or {lang: 1.0}
         unknown = set(shares) - set(LANGS)
@@ -590,12 +695,10 @@ class Corpus:
             if other not in shares:
                 continue
             if other == lang:
-                w, law = words, exponent
+                lng = self.language
             else:
-                w = words_of(other, SAMPLE_WORD_TYPES, rng_for(seed, STREAM_WORDS, i + 1))
-                law = SAMPLE_ZIPF_EXPONENT
-            part, _ = make_text(rng_for(seed, STREAM_VOCAB_SAMPLE, i + 1), w,
-                                round(sample_bytes * float(shares[other]) / whole), law,
-                                frame=FRAMES[other], whole_lines=True)
+                lng = language(other, SAMPLE_WORD_TYPES, SAMPLE_ZIPF_EXPONENT, rng_for(seed, STREAM_WORDS, i + 1))
+            part, _ = lng.text(rng_for(seed, STREAM_VOCAB_SAMPLE, i + 1),
+                               round(sample_bytes * float(shares[other]) / whole))
             parts.append(part)
         self.vocab_lines = make_vocab_units(b"".join(parts), vocab_size)
