@@ -106,8 +106,9 @@ JAX package.  Phases, each fatal on failure:
     (match_positions) equals its plain version, whole [n] outputs with the
     padding, in the tag layout the kernel chooses and with global tags forced,
     on the first 1 MB of each of en/ru/ja/zh (their bert-shaped vocabs,
-    whose tables probe chains of two and more slots), on the full 10 MB en
-    bucket, on UNK-heavy, astral-plane, punctuation-dense text, a
+    whose tables probe chains of two and more slots), on each piece of the
+    10 MB en document as the main path cuts it (doc_pieces: buckets of 2^22
+    and 2^21 positions), on UNK-heavy, astral-plane, punctuation-dense text, a
     2,000-codepoint space-free run and n = 1, on a 150,000-token vocab
     whose 2^20 tags do not fit in shared memory, and on the 5,000-symbol
     vocab of 49-90-codepoint tokens (max_len past the kernel's 32-bit
@@ -119,7 +120,8 @@ JAX package.  Phases, each fatal on failure:
     probe kernel's matches and on random matches inside the window (the
     plain commit loops to the fixed point, as the kernels do): on the
     first 1 MB of each of
-    en/ru/ja/zh and the 10 MB en bucket (padded as the engine pads them),
+    en/ru/ja/zh and each piece of the 10 MB en document (padded as the
+    engine pads them),
     and on bench/stream_cases.py's cases (n = 1, 128, around one and two
     tiles of either kernel (2,048 positions for the commit, 4,096 for the
     features), n_valid < n, spacing-free and all-space texts over 4 and
@@ -135,24 +137,30 @@ JAX package.  Phases, each fatal on failure:
     en/ru/ja/zh corpora (ids equal to the native oracle) and every golden
     stream (byte-identical), and the CLI's fast-stream mode runs on one
     file; the features, probe and commit kernels and the decode's count
-    and write kernels must each have launched once per encode, the probe
+    and write kernels must each have launched once a piece (the encoders'
+    StageStats count the pieces; the 10 MB en and ru texts pass the
+    ladder's cap, so they run in pieces, the first written from the
+    document's count and each later one counted on its own), the probe
     with its tags in shared memory (read from its count of global-tag
     launches), and the word kernels not at all.
     Then, in this process, a one-rank nccl group: ShardedFastEncoder on a
     1-D grid and encode_2d_parallel on a 1 x 1 grid encode 10 MB en, equal
     to the oracle, with one launch of each of the three kernels each;
 10. stream numbers: the probe kernel's time by CUDA events behind a spin
-    kernel at the en first 1 MB and at the 10 MB en bucket (shared tags,
-    and global tags forced), its plain version's time at both, its bound;
-    the features and commit kernels' times the same way at the same two
-    shapes (the commit on the probe's matches), beside their plain
+    kernel at the en first 1 MB and at each piece of the 10 MB en document
+    (shared tags, and global tags forced), its plain version's time at
+    each, its bound, and their sums over the pieces (a 10 MB call, the
+    kernels line's numbers); the features and commit kernels' times the
+    same way at the same shapes (the commit on the probe's matches), beside their plain
     versions' and their bounds, and one call of each captured in a CUDA
     graph, whose nodes must be one kernel and one memset for the features,
     and three kernels and one memset for the commit; the 10 MB en
-    fast-stream rate (min and median of 5) with each part's time (the
-    bytes into the pinned slot, H2D, the decode's count with its read and
-    its write, features, match, commit, count and D2H) and each device
-    part's host enqueue time; with --compare DIR, the same
+    fast-stream rate (min and median of 5) with each part's time of the
+    pieced encode_bytes (stream_parts: the bytes into the pinned slot,
+    H2D, the decode's count with its read, the cut, then a piece's write,
+    features, match and commit, a later piece's H2D and count and the id
+    count's read and ids' copy of the piece before it, last the ids' copy
+    out) and each device part's host enqueue time; with --compare DIR, the same
     encode's rate and parts (each checkout's own stream_parts), and the
     linear rate, from the checkout at DIR and from this one, each in a
     process of its own, in the same turns as phase 7's; the peak of
@@ -166,11 +174,16 @@ JAX package.  Phases, each fatal on failure:
     on uniform and edge-byte strings at lengths around a thread's 16 bytes
     and the 4,096-byte tile, valid text with a 2-, 3- or 4-byte sequence
     across such an edge or cut off by the end there, random valid text of
-    every width, every golden text and the 10 MB en/ru/ja/zh corpora.
-    Integers: exactly 0.  Then, at the 10 MB en bucket, the decode's device
-    time (count with its memset and 4-byte copy, write, both) by CUDA
-    events behind a spin kernel, beside its bound (2 bytes a byte in and 4
-    a position of the bucket) and the plain version's time on the card,
+    every width, every golden text and the 10 MB en/ru/ja/zh corpora; on
+    each of those corpora past the ladder's cap, the count's tile prefixes
+    (against the plain count's) and each piece's bucket as the main path
+    writes it (the first from the document's count, each later one from
+    its own, given the cut's count).  Integers: exactly 0.  Then, on the
+    10 MB en document as the main path decodes it (the document's count
+    and the pieces' writes and later counts), the decode's device time
+    (counts with their memsets and copies, writes, both) by CUDA events
+    behind a spin kernel, beside its bound (2 bytes a byte in, 1 a byte of
+    a later piece's count and 4 a position of the buckets) and the plain version's time on the card,
     and one encode_bytes under torch.profiler; the whole call by
     encode_bytes against the host's decode, pad and pageable copy
     (encode_codepoints of decode_utf8), in turns, on the 10 MB en file and
@@ -239,10 +252,11 @@ JAX package.  Phases, each fatal on failure:
     the phase) must have run on the card, the word encoders with
     verify_repairs and device_fallbacks 0, the linear encoders with
     device_batches > 0; the word kernel and the compaction must have
-    launched alike, the probe once a fast-stream encode, the linear match
-    once a linear device batch run by launches (not a graph's replay), the
-    features and commit kernels once for each of both, the decode's two
-    kernels once a fast-stream encode, the split kernels not at all.  The kernels line gives
+    launched alike, the probe once a fast-stream piece (the encoders'
+    StageStats count the pieces), the linear match once a linear device
+    batch run by launches (not a graph's replay), the features and commit
+    kernels once for each of both, the decode's two kernels once a
+    fast-stream piece, the split kernels not at all.  The kernels line gives
     each kernel's launches in this run as `harness_launches`;
 15. stress: the reference's differential stress configurations
     (bench/stress_cases.py, the JAX package's reference-scale stress test's
@@ -266,9 +280,10 @@ JAX package.  Phases, each fatal on failure:
     one unit the features and commit kernels are also held to their plain
     versions (as in 8b) on the probe kernel's matches: the longest chain
     the commit's walk can be given.  Fast-stream must launch the
-    features, probe and commit kernels once an encode, the word kernel and
-    the compaction launch alike, fast-stream also the decode's count and
-    write kernels once an encode; every linear batch must be a graph's
+    features, probe and commit kernels once a piece (its StageStats count
+    them: spaced_10M passes the ladder's cap), the word kernel and the
+    compaction launch alike, fast-stream also the decode's count and
+    write kernels once a piece; every linear batch must be a graph's
     replay or run by launches, run the features, match and commit kernels
     once each in the profile, and the wrappers count one call each a
     batch run by launches.  The kernels line gives each kernel's wrapper
@@ -1214,16 +1229,47 @@ def features_commit_check(x, n_valid: int, max_len: int, matches: dict, unk_id: 
     return row, got
 
 
+def call_of(rows: list, pieces: list) -> dict:
+    """A 10 MB call's kernel numbers from its pieces' rows: the times, the
+    bytes, the operations and the bounds summed."""
+    keys = [k for k in ("ms", "ms_global_tags", "plain_ms", "bytes", "ops", "bound_ms") if k in rows[0]]
+    return {"pieces": pieces, **{k: sum(r[k] for r in rows) for k in keys},
+            "bound_by": rows[0]["bound_by"]}
+
+
+def doc_pieces(data: bytes) -> list:
+    """The pieces FastEncoder.encode_bytes cuts `data` into on the card:
+    (lo, hi, codepoints) byte ranges, from the decode's count with its
+    tiles' prefixes (engine.byte_pieces), or the whole document where it
+    holds at most the ladder's cap."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch import engine
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
+
+    counted = ud.count_codepoints(torch.from_numpy(np.frombuffer(data, np.uint8).copy()).cuda(),
+                                  prefixes=True)
+    if counted.n <= engine.LADDER_CAP:
+        return [(0, len(data), counted.n)]
+    return engine.byte_pieces(data, counted, engine.LADDER_CAP)
+
+
 def stream_parts(enc, data: bytes):
     """One fast-stream encode of `data`, part by part, the steps of
     FastEncoder.encode_bytes: the bytes into the encoder's pinned slot by
-    the host clock, then the H2D, the decode's count with the host's read
-    of it, the decode's write, features, match, commit, and the count's
-    read with the ids' D2H by CUDA events, and each device part's host
-    time between the same two events.  Returns (ids, ms by part)."""
+    the host clock, then by CUDA events the H2D, the decode's count with
+    the host's read of it (and of the tiles' prefixes where the bytes pass
+    the ladder's cap), the cut (`cut`: the card waits for the host), and
+    for each piece i (`piece<i>.`; a later one first its bytes' H2D with
+    its count, then the read of the piece before's id count with its ids'
+    copy) the decode's write, features, match and commit; last the read of
+    the last piece's id count, its ids' copy and the copy out
+    (`fetch_last`).  Each device part also gives its host time between the
+    same two events.  Returns (ids, ms by part)."""
     import torch
 
-    from wordpiece_tpu_torch.engine import bucket_size
+    from wordpiece_tpu_torch import engine
     from wordpiece_tpu_torch.ops import commit as commit_ops
     from wordpiece_tpu_torch.ops import match_fast as mf
     from wordpiece_tpu_torch.ops import utf8_decode as ud
@@ -1235,39 +1281,54 @@ def stream_parts(enc, data: bytes):
     t0 = time.perf_counter()
     host = enc._staged(data)
     t1 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-    stamps = []  # the host clock at each event's record
+    marks = []  # (part, its end's event, the host clock at its record)
 
-    def mark(i):
-        ev[i].record()
-        stamps.append(time.perf_counter())
+    def mark(part):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((part, ev, time.perf_counter()))
 
-    mark(0)
+    mark("start")
     dev_bytes = host.to(enc.device, non_blocking=True)
-    mark(1)
-    counted = ud.count_codepoints(dev_bytes)
-    mark(2)
-    n = counted.n
-    cp_pad = ud.write_codepoints(counted, bucket_size(n) + st["max_len"])
-    del counted, dev_bytes
-    mark(3)
-    feats = compute_features(cp_pad[: cp_pad.shape[0] - st["max_len"]], n, st["max_len"])
-    mark(4)
-    best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
-    mark(5)
-    ids, count = commit_ops.commit(best_id, best_len, feats, n, unk_id=unk_id)
-    mark(6)
-    out = ids[: int(count)].cpu().numpy()
-    mark(7)
-    ev[7].synchronize()
-    names = ("h2d", "decode_count", "decode_write", "features", "match", "commit",
-             "count_and_d2h")
+    mark("h2d")
+    counted = ud.count_codepoints(dev_bytes, prefixes=len(data) > engine.LADDER_CAP)
+    del dev_bytes
+    mark("decode_count")
+    pieces = [(0, len(data), counted.n)]
+    if counted.n > engine.LADDER_CAP:
+        pieces = engine.byte_pieces(data, counted, engine.LADDER_CAP)
+    mark("cut")
+    out, end, ran = enc._ids_buffer([k for _, _, k in pieces]), 0, None
+    for i, (lo, hi, k) in enumerate(pieces):
+        p = f"piece{i}."
+        if i:
+            counted = ud.count_codepoints(host[lo:hi].to(enc.device, non_blocking=True), expect=k)
+            mark(p + "h2d_and_decode_count")
+            end = enc._fetch(*ran, out, end)
+            ran = None
+            ud.check(counted)
+            mark(p + "fetch_before")
+        elif len(pieces) > 1:
+            counted = ud.head(counted, hi, k)
+        cp_pad = ud.write_codepoints(counted, engine.bucket_size(k) + st["max_len"])
+        del counted
+        mark(p + "decode_write")
+        feats = compute_features(cp_pad[: cp_pad.shape[0] - st["max_len"]], k, st["max_len"])
+        mark(p + "features")
+        best_id, best_len = mf.match_positions(cp_pad, feats.window, feats.wp, enc.table, **st)
+        mark(p + "match")
+        ran = (*commit_ops.commit(best_id, best_len, feats, k, unk_id=unk_id), k)
+        del cp_pad, feats, best_id, best_len
+        mark(p + "commit")
+    got = enc._fetch(*ran, out, end, last=True)
+    mark("fetch_last")
+    torch.cuda.synchronize()
     parts = {"host_slot": (t1 - t0) * 1e3}
-    parts.update({k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)})
+    parts.update({part: a[1].elapsed_time(ev) for a, (part, ev, _) in zip(marks, marks[1:])})
     # A part whose kernel is shorter than the host's enqueue of it shows
     # the enqueue by events: the card waits for the host.
-    parts["host_enqueue"] = {k: (stamps[i + 1] - stamps[i]) * 1e3 for i, k in enumerate(names)}
-    return out, parts
+    parts["host_enqueue"] = {part: (at - a[2]) * 1e3 for a, (part, _, at) in zip(marks, marks[1:])}
+    return got, parts
 
 
 def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lines_en: list,
@@ -1287,7 +1348,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     from wordpiece_tpu_torch.cli import main as cli_main
     from wordpiece_tpu_torch.core import unicode as uni
     from wordpiece_tpu_torch.core.vocab import parse_vocab
-    from wordpiece_tpu_torch.engine import index_statics, pad_codepoints
+    from wordpiece_tpu_torch.engine import LADDER_CAP, index_statics, pad_codepoints
     from wordpiece_tpu_torch.ops import commit as co
     from wordpiece_tpu_torch.ops import commit_cuda
     from wordpiece_tpu_torch.ops import match_fast as mf
@@ -1298,6 +1359,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     from wordpiece_tpu_torch.parallel import sharding as sh
     from wordpiece_tpu_torch.parallel import vocab_parallel as vp
     from wordpiece_tpu_torch.runtime import loader
+    from wordpiece_tpu_torch.utils.profiling import StageStats
 
     mp = mf.match_positions
     mc = wk.word_match_commit_multi
@@ -1320,11 +1382,18 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996", **row})
         if lang == "en":
             at["en_1MB"] = (args, st)
-    cps_en = uni.decode_utf8(corpora["en"][0]).astype(np.int32)
-    args, st, row = stream_check(encs["en"], cps_en, "en_10MB")
-    at["en_10MB"] = (args, st)
-    max_err = max(max_err, row["max_abs_err"])
-    emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996", **row})
+    # The 10 MB en document at the shapes the main path runs it: its pieces.
+    data_en = corpora["en"][0]
+    cps_en = uni.decode_utf8(data_en).astype(np.int32)
+    pieces_en = {f"en_10MB_piece{i}": (lo, hi, k) for i, (lo, hi, k) in enumerate(doc_pieces(data_en))}
+    if len(pieces_en) < 2 or max(k for _, _, k in pieces_en.values()) > LADDER_CAP:
+        raise AssertionError(f"the 10 MB en document's pieces: {pieces_en}")
+    for label, (lo, hi, k) in pieces_en.items():
+        cps = uni.decode_utf8(data_en[lo:hi]).astype(np.int32)
+        args, st, row = stream_check(encs["en"], cps, label)
+        at[label] = (args, st)
+        max_err = max(max_err, row["max_abs_err"])
+        emit_json({"phase": "stream_kernel_vs_plain", "vocab": "bert_28996", **row})
     special = wpt.make_encoder(parse_vocab(bert_lines_en + ASTRAL_TOKENS), "fast-stream",
                                device="cuda")
     for name, cps in stream_texts(words, rng).items():
@@ -1394,7 +1463,9 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         got = fc_stream(enc, cps, int(cps.shape[0]), f"{lang}_1MB", True)
         if lang == "en":
             fc_at["en_1MB"] = got
-    fc_at["en_10MB"] = fc_stream(encs["en"], cps_en, int(cps_en.shape[0]), "en_10MB", True)
+    for label, (lo, hi, k) in pieces_en.items():
+        cps = uni.decode_utf8(data_en[lo:hi]).astype(np.int32)
+        fc_at[label] = fc_stream(encs["en"], cps, k, label, True)
     cases = {**stream_cases.feature_cases(), **stream_cases.large_cases()}
     for name, (cps, n_valid, _) in cases.items():
         fc_stream(special, cps, n_valid, name, False)
@@ -1406,15 +1477,20 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
     fk.launches = ck.launches = 0
     ud.count_codepoints.launches = ud.write_codepoints.launches = 0
     mc.launches = mc.launches_global = wk.compact_from_counts.launches = 0
-    calls = 0
+    calls = pieces = 0
+    by_lang = {}
     for lang, enc in encs.items():
         data, _, want = corpora[lang]
         if lang == "en":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             resident = torch.cuda.memory_allocated()
+        enc.stats = StageStats()
         got = api._encode_with(enc, data)
+        by_lang[lang] = enc.stats.report()["counters"]["stream_pieces"]
+        enc.stats = None
         calls += 1
+        pieces += by_lang[lang]
         ok = got.dtype == np.int32 and np.array_equal(got, want)
         row = {"phase": "stream_main_path", "corpus": f"{lang}_10MB", "vocab": "bert_28996",
                "ids": int(got.shape[0]), "equal_native_oracle": bool(ok),
@@ -1431,6 +1507,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         got = api._encode_with(wpt.make_encoder(parse_vocab(lines), "fast-stream", device="cuda"),
                                corpus)
         calls += 1
+        pieces += 1  # a golden text is far under the ladder's cap
         ok = got.dtype == np.int32 and got.tobytes() == ref.tobytes()
         emit_json({"phase": "stream_golden", "file": name, "ids": int(got.shape[0]),
                    "byte_identical": bool(ok)})
@@ -1446,6 +1523,7 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
         rc = cli_main(["fast-stream", paths[0], paths[1], "--out-file", paths[2],
                        "--device", "cuda"])
         calls += 1
+        pieces += 1
         with open(paths[2]) as f:
             ok = rc == 0 and f.read() == "".join(f"{int(i)} " for i in ref)
     emit_json({"phase": "stream_cli", "file": name, "rc": rc, "equal_reference": bool(ok)})
@@ -1459,9 +1537,13 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
                        "utf8_write": ud.write_codepoints.launches}
     emit_json({"phase": "stream_main_path_launches", **stream_launches,
                "match_positions_global_tags": mp.launches_global,
-               "encode_calls": calls, "word_kernels": list(word)})
-    if set(stream_launches.values()) != {calls} or calls < 1:
-        raise AssertionError(f"{stream_launches} launches for {calls} fast-stream encodes")
+               "encode_calls": calls, "pieces": pieces, "pieces_10MB": by_lang,
+               "word_kernels": list(word)})
+    # One launch of each a piece; 10 MB en and ru pass the ladder's cap.
+    if (set(stream_launches.values()) != {pieces} or pieces <= calls
+            or by_lang["en"] != len(pieces_en)):
+        raise AssertionError(f"{stream_launches} launches for {pieces} pieces of {calls} "
+                             f"fast-stream encodes")
     if launches_global:
         raise AssertionError("the bert-scale stream path read its tags from global memory")
     en_st = encs["en"]._statics
@@ -1520,8 +1602,9 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
                        "mean_warp_max_lengths": float(warp_max.mean())}
         if not all(v > 0 for v in (k_ms, kg_ms, p_ms, nbytes, ops)):
             raise AssertionError(f"{key}: a time or a bound term was not measured")
+    timing["en_10MB"] = call_of([timing[k] for k in pieces_en], list(pieces_en))
     emit_json({"phase": "stream_kernel_time", "card": card, "launches_per_encode": launches / calls,
-               **timing})
+               "launches_per_piece": launches / pieces, **timing})
 
     # The features and commit kernels at the same shapes, the commit on the
     # probe kernel's matches.
@@ -1557,6 +1640,8 @@ def stream_phases(card: str, corpora: dict, goldens: list, words: list, bert_lin
             if not all(v > 0 for v in (k_ms, p_ms, nbytes, ops)):
                 raise AssertionError(f"{key} {part}: a time or a bound term was not measured")
         fc_timing[key] = row
+    fc_timing["en_10MB"] = {part: call_of([fc_timing[k][part] for k in pieces_en], list(pieces_en))
+                            for part in ("features", "commit")}
     emit_json({"phase": "features_commit_time", "card": card, **fc_timing})
 
     enc_en, data_en = encs["en"], corpora["en"][0]
@@ -1761,6 +1846,52 @@ def utf8_check(data: bytes, max_len: int, label: str) -> dict:
     return {"input": label, "bytes": len(data), "codepoints": n, "max_abs_err": err}
 
 
+def utf8_pieces_check(data: bytes, max_len: int, label: str) -> list:
+    """The decode as the main path runs a document past the ladder's cap:
+    the count of the whole document with its tiles' prefixes (held to the
+    plain count's at each tile's end), then each piece's bucket
+    (bucket_size(codepoints) + max_len, written into memory the allocator
+    hands back dirty) against decode_plain of the piece's bytes: the first
+    piece written from the document's count (utf8_decode.head), each later
+    one from its own bytes' count given the cut's (checked after a read).
+    Returns a row a piece; raises unless exact."""
+    import numpy as np
+    import torch
+
+    from wordpiece_tpu_torch import engine
+    from wordpiece_tpu_torch.ops import utf8_decode as ud
+
+    def host(b):
+        return torch.from_numpy(np.frombuffer(b, np.uint8).copy())
+
+    counted = ud.count_codepoints(host(data).cuda(), prefixes=True)
+    tile, prefixes = counted.tiles
+    every = ud.count_codepoints(host(data), prefixes=True).tiles[1]  # a tile a byte on the CPU
+    ends = np.minimum(np.arange(tile, len(data) + tile, tile), len(data)) - 1
+    if not np.array_equal(prefixes, every[ends]):
+        raise AssertionError(f"{label}: the count's tile prefixes differ from the plain count's")
+    if counted.n <= engine.LADDER_CAP:
+        return []
+    rows = []
+    for i, (lo, hi, k) in enumerate(engine.byte_pieces(data, counted, engine.LADDER_CAP)):
+        if i:
+            piece = ud.count_codepoints(host(data[lo:hi]).cuda(), expect=k)
+            torch.cuda.synchronize()
+            ud.check(piece)
+        else:
+            piece = ud.head(counted, hi, k)
+        size = engine.bucket_size(k) + max_len
+        torch.full((size,), -7, dtype=torch.int32, device="cuda")  # a dirty block to reuse
+        got = ud.write_codepoints(piece, size)
+        want = ud.decode_plain(host(data[lo:hi]))
+        expect = torch.cat([want, torch.zeros(size - k, dtype=torch.int32)])
+        err = exact_diff([got.cpu()], [expect], f"{label} piece {i}")
+        rows.append({"input": f"{label}_piece{i}", "bytes": hi - lo, "codepoints": k,
+                     "bucket": size, "written_from": "the document's count" if i == 0 else
+                     "its own count", "max_abs_err": err})
+    return rows
+
+
 def utf8_phase(card: str, corpora: dict, goldens: list, rng) -> dict:
     """Phase 10b (module docstring).  Returns the decode's entry of the
     kernels line."""
@@ -1779,49 +1910,69 @@ def utf8_phase(card: str, corpora: dict, goldens: list, rng) -> dict:
     rows = [utf8_check(data, max_len, name) for name, data in utf8_texts(rng).items()]
     rows += [utf8_check(corpus, max_len, f"golden_{name}") for name, corpus, _, _ in goldens]
     rows += [utf8_check(data, max_len, f"{lang}_10MB") for lang, (data, _, _) in corpora.items()]
+    for lang, (data, _, _) in corpora.items():
+        rows += utf8_pieces_check(data, max_len, f"{lang}_10MB")
+    if not any(r["input"].startswith("en_10MB_piece1") for r in rows):
+        raise AssertionError("the 10 MB en document ran as one piece")
     max_err = max(r["max_abs_err"] for r in rows)
     emit_json({"phase": "utf8_vs_plain", "inputs": len(rows), "max_abs_err": max_err,
                "rows": [r for r in rows if r["bytes"] >= 1 << 20 or r["input"].startswith(
                    ("golden", "mixed"))]})
 
-    # The kernels' device time at the 10 MB en bucket: the two launches
-    # with the count's memset and 4-byte copy, behind a spin kernel.
+    # The kernels' device time on a 10 MB en call as the main path runs
+    # it, behind a spin kernel: the count of the document with its memset,
+    # 4-byte copy and the copy of the tiles' prefixes; the first piece's
+    # write from it; each later piece's count (with its memset and 4-byte
+    # copy) and write, from its own bytes.
     data = corpora["en"][0]
     lib = udc.build()
-    dev_bytes = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).cuda()
-    counted = ud.count_codepoints(dev_bytes)
-    n = counted.n
-    size = bucket_size(n) + max_len
-    scratch = counted.state
-    word = torch.empty(1, dtype=torch.int32, pin_memory=True)
-    out = torch.empty(size, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    ptr = dev_bytes.data_ptr()
+    pieces = doc_pieces(data)
+    dev_bytes = [torch.from_numpy(np.frombuffer(data if i == 0 else data[lo:hi], np.uint8).copy())
+                 .cuda() for i, (lo, hi, _) in enumerate(pieces)]
+    scratch = [ud.count_codepoints(b).state for b in dev_bytes]
+    words = torch.zeros(len(pieces), dtype=torch.int32, pin_memory=True)
+    tiles = torch.empty(-(-len(data) // int(lib.wp_utf8_tile_bytes())), dtype=torch.int64,
+                        pin_memory=True)
+    sizes = [bucket_size(k) + max_len for _, _, k in pieces]
+    outs = [torch.empty(size, dtype=torch.int32, device="cuda") for size in sizes]
 
     def count():
-        if lib.wp_utf8_count(ptr, len(data), scratch.data_ptr(), word.data_ptr(), stream):
-            raise RuntimeError("wp_utf8_count failed")
+        for i, b in enumerate(dev_bytes):
+            if lib.wp_utf8_count(b.data_ptr(), b.shape[0], scratch[i].data_ptr(),
+                                 words[i:].data_ptr(), stream):
+                raise RuntimeError("wp_utf8_count failed")
+            if i == 0 and lib.wp_utf8_prefixes(scratch[0].data_ptr(), b.shape[0],
+                                               tiles.data_ptr(), stream):
+                raise RuntimeError("wp_utf8_prefixes failed")
 
     def write():
-        if lib.wp_utf8_write(ptr, len(data), scratch.data_ptr(), n, size, out.data_ptr(), stream):
-            raise RuntimeError("wp_utf8_write failed")
+        for i, ((lo, hi, k), b) in enumerate(zip(pieces, dev_bytes)):
+            if lib.wp_utf8_write(b.data_ptr(), hi - lo, scratch[i].data_ptr(), k, sizes[i],
+                                 outs[i].data_ptr(), stream):
+                raise RuntimeError("wp_utf8_write failed")
 
     def both():
         count()
         write()
 
     ms = {"count": device_ms(count, 50), "write": device_ms(write, 50), "decode": device_ms(both, 50)}
-    if word.item() != n or not torch.equal(out[:n].cpu(), ud.decode_plain(dev_bytes.cpu())):
-        raise AssertionError("the timed decode differs from the plain version")
-    nbytes = 2 * len(data) + 4 * size
+    for i, (lo, hi, k) in enumerate(pieces):
+        want = ud.decode_plain(torch.from_numpy(np.frombuffer(data[lo:hi], np.uint8).copy()))
+        if (i and words[i].item() != k) or not torch.equal(outs[i][:k].cpu(), want):
+            raise AssertionError(f"the timed decode of piece {i} differs from the plain version")
+    n = words[0].item()
+    later = sum(hi - lo for lo, hi, _ in pieces[1:])
+    nbytes = 2 * len(data) + later + 4 * sum(sizes)
     b_ms, b_by = bound_ms(nbytes, 0)
-    plain_ms = cuda_ms(lambda: ud.decode_plain(dev_bytes), 3)
+    plain_ms = cuda_ms(lambda: ud.decode_plain(dev_bytes[0]), 3)
     wall, prof_rows, _ = device_profile(lambda: enc.encode_bytes(data), None)
-    timing = {"bytes_in": len(data), "codepoints": n, "bucket": size, "ms": ms, "bytes": nbytes,
-              "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms["decode"],
-              "plain_ms": plain_ms, "encode_profile_rows": prof_rows[:12]}
+    timing = {"bytes_in": len(data), "codepoints": n, "pieces": pieces, "buckets": sizes, "ms": ms,
+              "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+              "share_of_bound": b_ms / ms["decode"], "plain_ms": plain_ms,
+              "encode_profile_rows": prof_rows[:12]}
     emit_json({"phase": "utf8_time", "card": card, "corpus": "en_10MB", **timing})
-    del dev_bytes, counted, scratch, out
+    del dev_bytes, scratch, outs
 
     # The whole call, the bytes through the card against the host's decode,
     # pad and pageable copy (encode_codepoints of decode_utf8: the path
@@ -1866,7 +2017,9 @@ def utf8_phase(card: str, corpora: dict, goldens: list, rng) -> dict:
         "replaces": "none: the JAX engine decodes on the host (wordpiece_tpu/core/unicode.py)",
         "layout": "2 launches, 1 memset and a 4-byte D2H a decode: count (forward sum scan with "
                   "decoupled look-back over 4,096-byte tiles), the host's read, write (codepoints "
-                  "staged in shared memory, zeros to the bucket's end)",
+                  "staged in shared memory, zeros to the bucket's end); past the ladder's cap "
+                  "the document's count brings its tiles' prefixes, its first piece is written "
+                  "from it, each later piece counted and written from its own bytes",
         "max_abs_err": max_err,
         "ms": ms["decode"],
         "plain_ms": plain_ms,
@@ -2292,12 +2445,15 @@ def harness_phase(card: str) -> dict:
     from wordpiece_tpu_torch.dryrun import KERNELS
     from wordpiece_tpu_torch.engine_linear import LinearEncoder
     from wordpiece_tpu_torch.engine_word import WordEncoder
+    from wordpiece_tpu_torch.utils.profiling import StageStats
 
     made, ran = [], []
     make_encoder, run = api.make_encoder, harness.run
 
     def keeping_encoders(vocab, engine="fast", **kw):
         enc = make_encoder(vocab, engine=engine, **kw)
+        if engine == "fast-stream":
+            enc.stats = StageStats()  # the pieces its encodes ran
         made.append((engine, enc))
         return enc
 
@@ -2327,6 +2483,8 @@ def harness_phase(card: str) -> dict:
     words = [enc for _, enc in made if isinstance(enc, WordEncoder)]
     linears = [enc for _, enc in made if isinstance(enc, LinearEncoder)]
     stream_encodes = sum(e == "fast-stream" for e, _ in made) * (1 + HARNESS_ITERS)
+    stream_pieces = sum(enc.stats.report()["counters"]["stream_pieces"]
+                        for e, enc in made if e == "fast-stream")
     lin_batches = sum(enc.device_batches for enc in linears)
     lin_launched = lin_batches - sum(enc.graph_replays for enc in linears)
     equal = {lang: len(set(s.values())) == 1 and
@@ -2343,7 +2501,8 @@ def harness_phase(card: str) -> dict:
                "device_fallbacks": sum(enc.device_fallbacks for enc in words),
                "linear_device_batches": [enc.device_batches for enc in linears],
                "linear_graph_replays": [enc.graph_replays for enc in linears],
-               "fast_stream_encodes": stream_encodes, "launches": launches,
+               "fast_stream_encodes": stream_encodes, "fast_stream_pieces": stream_pieces,
+               "launches": launches,
                "wall_s": seconds})
     if rc != 0 or not all(equal.values()):
         raise AssertionError(f"harness: rc {rc}, streams equal by language {equal}")
@@ -2360,14 +2519,15 @@ def harness_phase(card: str) -> dict:
         raise AssertionError(f"harness: kernels not launched {missing}, or split kernels "
                              f"launched: {launches}")
     if (launches["word_match_commit"] != launches["compact"]
-            or launches["match_positions"] != stream_encodes
+            or stream_pieces < stream_encodes
+            or launches["match_positions"] != stream_pieces
             or launches["match_from_sa"] != lin_launched
-            or launches["compute_features"] != stream_encodes + lin_launched
-            or launches["commit_with_positions"] != stream_encodes + lin_launched
-            or not launches["utf8_count"] == launches["utf8_write"] == stream_encodes):
-        raise AssertionError(f"harness: launches {launches} against {stream_encodes} "
-                             f"fast-stream encodes and {lin_launched} linear batches run by "
-                             f"launches ({lin_batches} in all)")
+            or launches["compute_features"] != stream_pieces + lin_launched
+            or launches["commit_with_positions"] != stream_pieces + lin_launched
+            or not launches["utf8_count"] == launches["utf8_write"] == stream_pieces):
+        raise AssertionError(f"harness: launches {launches} against {stream_pieces} pieces of "
+                             f"{stream_encodes} fast-stream encodes and {lin_launched} linear "
+                             f"batches run by launches ({lin_batches} in all)")
     return launches
 
 
@@ -2465,7 +2625,7 @@ def stress_phase(card: str, cases=None, device="cuda") -> tuple:
                 scalar = None
                 if engine in ("fast", "linear"):
                     scalar = enc._scalar = CountingScalar(loader.VocabHandle(vocab))
-                if engine == "linear":
+                if engine in ("linear", "fast-stream"):
                     enc.stats = StageStats()
                 for c in KERNELS.values():
                     c.launches = 0
@@ -2502,6 +2662,8 @@ def stress_phase(card: str, cases=None, device="cuda") -> tuple:
                                      "host_units": scalar.batched}
                     row.update(verify_repairs=enc.verify_repairs,
                                device_fallbacks=enc.device_fallbacks)
+                elif engine == "fast-stream":
+                    row["pieces"] = enc.stats.report()["counters"]["stream_pieces"]
                 elif engine == "linear":
                     row["routes"] = {"device_batches": enc.device_batches,
                                      "scalar_route_units": scalar.batched,
@@ -2555,9 +2717,11 @@ def stress_launch_check(name, engine, enc, row, longest_unit, widest, max_slot_l
         else:
             ok = ok and b > 0
     else:
+        # One launch of each a piece: a document past the ladder's cap runs
+        # in pieces, the first written from the document's count.
         ok = (got["compute_features"] == got["match_positions"] == got["commit_with_positions"]
-              == got["utf8_count"] == got["utf8_write"] == 1 and not split and not got["word_match_commit"] and not got["compact"]
-              and not got["match_from_sa"])
+              == got["utf8_count"] == got["utf8_write"] == row["pieces"] >= 1 and not split
+              and not got["word_match_commit"] and not got["compact"] and not got["match_from_sa"])
     if not ok:
         raise AssertionError(f"stress {name} {engine}: launches or routes {row}")
 

@@ -201,3 +201,235 @@ def test_encode_bytes_equals_codepoints_oracle_and_engines(case, bytes_engines):
         assert (got == vocab.unk_token_id).sum() >= 3
     if case == "empty":
         assert got.shape == (0,)
+
+
+# Pieces: a document of more codepoints than the ladder's cap runs as
+# pieces of at most the cap, each cut just before a space-class codepoint.
+# Held here with the cap patched small, to the whole text as one program
+# (encode_padded on one bucket), the oracle and the JAX engine.
+CAP = 4096
+SNOWMAN = "☃"  # a codepoint no vocab below holds: a whole-word [UNK]
+
+
+@pytest.fixture(scope="module")
+def piece_setup():
+    en = make_corpus(60_000, seed=41)
+    sample = en[:20_000] + b" " + b" ".join(make_corpus(12_000, lang=lang, seed=41)
+                                            for lang in ("ru", "zh", "ja"))
+    lines = make_vocab(sample, vocab_size=1500, seed=41)
+    assert SNOWMAN not in "".join(lines)
+    vocab = parse_vocab(lines)
+    return en, lines, vocab, FastEncoder(vocab, device="cpu"), jengine.FastEncoder(jax_parse_vocab(lines))
+
+
+@pytest.fixture
+def small_cap(monkeypatch):
+    monkeypatch.setattr(engine, "LADDER_CAP", CAP)
+
+
+def whole_text(enc, cps: np.ndarray) -> np.ndarray:
+    """The whole text as one program: encode_padded on one bucket."""
+    cp_pad = torch.from_numpy(engine.pad_codepoints(cps, enc._statics["max_len"]))
+    ids, count = engine.encode_padded(cp_pad, cps.shape[0], enc.table, **enc._statics)
+    return ids[: int(count)].numpy()
+
+
+def fill(en: bytes, m: int, at: int = 0) -> bytes:
+    """m ASCII codepoints of the corpus, the last a space."""
+    assert en[at : at + m].isascii()
+    return en[at : at + m - 1] + b" "
+
+
+def space_free(m: int) -> bytes:
+    rng = np.random.default_rng(m)
+    return b"".join([b"ab", b"c", b"the", b"d"][int(i)] for i in rng.integers(0, 4, m))[:m]
+
+
+PIECE_CASES = {
+    "whitespace_run": lambda en: fill(en, 4086) + b" \t \n  \r\n   " * 2 + en[5000:12000],
+    "unk_ending_before_cut": lambda en: fill(en, 4091) + f"ab{SNOWMAN}xy".encode() + b" " + en[5000:12000],
+    "unk_starting_after_cut": lambda en: fill(en, 4097) + f"ab{SNOWMAN}xy ".encode() + en[5000:12000],
+    "truncated_multibyte_before_cut": lambda en: fill(en, 4095) + b"q\xe2\x82 " + fill(en, 4000, 5000)
+    + b"\xf0 " + en[9000:13000],
+    "newline_only": lambda en: en[:12000].replace(b" ", b"\n"),
+    "u2581_only": lambda en: en[:12000].replace(b" ", "▁".encode()),
+    "ru": lambda en: make_corpus(24_000, lang="ru", seed=43),
+    "zh": lambda en: make_corpus(30_000, lang="zh", seed=43),
+    "ja": lambda en: make_corpus(30_000, lang="ja", seed=43),
+    "space_free_fallback": lambda en: space_free(10_000) + b" " + en[5000:7000],
+    "fallback_after_pieces": lambda en: fill(en, 9000) + space_free(8_000) + b" " + en[10000:12000],
+    "n_is_cap": lambda en: en[:CAP],
+    "n_is_cap_plus_1": lambda en: en[: CAP + 1],
+}
+
+
+@pytest.mark.parametrize("case", list(PIECE_CASES))
+def test_pieces_equal_whole_text_oracle_and_jax(case, piece_setup, small_cap):
+    from wordpiece_tpu_torch.utils.profiling import StageStats
+
+    en, _, vocab, enc, jenc = piece_setup
+    data = PIECE_CASES[case](en)
+    cps = uni.decode_utf8(data).astype(np.int32)
+    want = whole_text(enc, cps)
+    np.testing.assert_array_equal(want, np.asarray(encode_oracle(cps, vocab), dtype=np.int32))
+    np.testing.assert_array_equal(want, jenc.encode_codepoints(cps))
+    enc.stats = StageStats()
+    try:
+        np.testing.assert_array_equal(enc.encode_bytes(data), want)
+        by_bytes = enc.stats.report()["counters"]["stream_pieces"]
+        np.testing.assert_array_equal(enc.encode_codepoints(cps), want)
+    finally:
+        enc.stats = None
+    counted = engine.utf8_decode.count_codepoints(torch.from_numpy(np.frombuffer(data, np.uint8).copy()),
+                                                  prefixes=True)
+    pieces = engine.byte_pieces(data, counted, CAP)
+    assert by_bytes == len(pieces) == len(engine.codepoint_pieces(cps, CAP))
+    if case == "n_is_cap":
+        assert len(pieces) == 1 and cps.shape[0] == CAP
+    elif case == "space_free_fallback":
+        assert len(pieces) == 1  # the whole document, past the cap
+    elif case == "fallback_after_pieces":
+        assert len(pieces) >= 2 and pieces[-1][2] > CAP
+    else:
+        assert len(pieces) >= 2 and max(k for _, _, k in pieces) <= CAP
+    if case.startswith("unk"):
+        assert (want == vocab.unk_token_id).any()
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_random_cut_stress(seed, piece_setup, monkeypatch):
+    """Slices of a mixed-language corpus at seeded offsets (multibyte
+    sequences cut at their ends), under seeded caps."""
+    en, _, vocab, enc, _ = piece_setup
+    rng = np.random.default_rng(seed)
+    corpus = en[:20_000] + b" ".join(make_corpus(20_000, lang=lang, seed=seed) for lang in ("ru", "zh", "ja"))
+    cut = 0
+    for _ in range(5):
+        lo = int(rng.integers(0, len(corpus) - 9000))
+        data = corpus[lo : lo + int(rng.integers(2000, 9000))]
+        cap = int(np.exp(rng.uniform(np.log(64), np.log(4096))))
+        monkeypatch.setattr(engine, "LADDER_CAP", cap)
+        cps = uni.decode_utf8(data).astype(np.int32)
+        want = whole_text(enc, cps)
+        np.testing.assert_array_equal(want, np.asarray(encode_oracle(cps, vocab), dtype=np.int32))
+        np.testing.assert_array_equal(enc.encode_bytes(data), want, err_msg=f"cap {cap}")
+        np.testing.assert_array_equal(enc.encode_codepoints(cps), want, err_msg=f"cap {cap}")
+        cut += len(engine.codepoint_pieces(cps, cap)) > 1
+    assert cut >= 3
+
+
+def is_space_start(data: bytes, at: int) -> bool:
+    return data[at] in b"\t\n\x0b\x0c\r " or data[at : at + 3] == "▁".encode()
+
+
+@pytest.mark.parametrize("cap", [1000, CAP])
+@pytest.mark.parametrize("lang", ["en", "ru", "zh", "ja"])
+def test_the_piece_rule_bounds(lang, cap):
+    """Every piece at most cap codepoints, at most ceil(n / cap) + 1 pieces,
+    each ending just before a space-class codepoint, and together the
+    document; the codepoint rule alike."""
+    data = make_corpus(40_000, lang=lang, seed=47)
+    counted = engine.utf8_decode.count_codepoints(torch.from_numpy(np.frombuffer(data, np.uint8).copy()),
+                                                  prefixes=True)
+    n = counted.n
+    pieces = engine.byte_pieces(data, counted, cap)
+    assert 1 < len(pieces) <= -(-n // cap) + 1
+    assert [lo for lo, _, _ in pieces[1:]] == [hi for _, hi, _ in pieces[:-1]]
+    assert pieces[0][0] == 0 and pieces[-1][1] == len(data)
+    assert [k for _, _, k in pieces] == [len(uni.decode_utf8(data[lo:hi])) for lo, hi, _ in pieces]
+    assert max(k for _, _, k in pieces) <= cap
+    assert all(is_space_start(data, hi) for _, hi, _ in pieces[:-1])
+    cps = uni.decode_utf8(data).astype(np.int32)
+    by_cp = engine.codepoint_pieces(cps, cap)
+    assert 1 < len(by_cp) <= -(-n // cap) + 1 and max(hi - lo for lo, hi in by_cp) <= cap
+    assert [lo for lo, _ in by_cp[1:]] == [hi for _, hi in by_cp[:-1]] and by_cp[-1][1] == n
+    assert all(cps[hi] in (9, 10, 11, 12, 13, 32, 0x2581) for _, hi in by_cp[:-1])
+
+
+def test_piece_counters_and_stages(piece_setup, small_cap):
+    """stream_pieces, stream_positions the pieces' buckets and
+    stream_table_rows one table a probe launch; the later pieces' bytes
+    copied and counted in stream_h2d."""
+    from wordpiece_tpu_torch.utils.profiling import StageStats
+
+    en, _, _, enc, _ = piece_setup
+    data = en[:10_000]
+    counted = engine.utf8_decode.count_codepoints(torch.from_numpy(np.frombuffer(data, np.uint8).copy()),
+                                                  prefixes=True)
+    pieces = engine.byte_pieces(data, counted, CAP)
+    assert len(pieces) == 3
+    enc.stats = StageStats()
+    try:
+        enc.encode_bytes(data)
+        rep = enc.stats.report()
+    finally:
+        enc.stats = None
+    assert rep["counters"] == {"stream_pieces": 3,
+                               "stream_positions": sum(engine.bucket_size(k) for _, _, k in pieces),
+                               "stream_table_rows": 3 * enc.table.slots.shape[0],
+                               "stream_card_decoded_bytes": 0}
+    assert rep["counters"]["stream_positions"] == 4096 + 4096 + 2048
+    assert rep["encode"]["calls"] == rep["host_pad"]["calls"] == 1
+    assert rep["stream_h2d"]["calls"] == rep["device_dispatch"]["calls"] == rep["device_fetch"]["calls"] == 3
+
+
+@pytest.mark.parametrize("lang", ["en", "ru"])
+def test_a_document_at_the_cap_runs_one_piece(lang, piece_setup, small_cap, monkeypatch):
+    """n = cap: one count (its prefixes read with it where the bytes pass
+    the cap), one write, one features, probe and commit call, one id
+    count: the launches and reads of a call without pieces."""
+    from wordpiece_tpu_torch.ops import commit as commit_ops
+    from wordpiece_tpu_torch.ops import text_features, utf8_decode
+
+    _, _, _, enc, _ = piece_setup
+    cps = uni.decode_utf8(make_corpus(20_000, lang=lang, seed=53))[:CAP]
+    data = uni.encode_utf8(cps)
+    want = whole_text(enc, cps.astype(np.int32))
+    calls = {}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def counted(*a, **k):
+            calls[name] = calls.get(name, []) + [k]
+            return fn(*a, **k)
+
+        monkeypatch.setattr(module, name, counted)
+
+    for module, name in ((utf8_decode, "count_codepoints"), (utf8_decode, "write_codepoints"),
+                         (text_features, "compute_features"), (match_fast, "match_positions"),
+                         (commit_ops, "commit_with_positions"), (utf8_decode, "head")):
+        spy(module, name)
+    np.testing.assert_array_equal(enc.encode_bytes(data), want)
+    assert {k: len(v) for k, v in calls.items()} == {
+        "count_codepoints": 1, "write_codepoints": 1, "compute_features": 1, "match_positions": 1,
+        "commit_with_positions": 1}
+    assert calls["count_codepoints"][0] == {"prefixes": len(data) > CAP}
+
+
+def test_later_pieces_take_the_cuts_count(piece_setup, small_cap, monkeypatch):
+    """The first count brings the tiles' prefixes; each later piece's count
+    is given the cut's (and on a card read with the id count of the piece
+    before); a cut whose count is wrong raises before its piece runs."""
+    from wordpiece_tpu_torch.ops import utf8_decode
+
+    en, _, _, enc, _ = piece_setup
+    data = en[:10_000]
+    want = enc.encode_bytes(data)
+    calls = []
+    count = utf8_decode.count_codepoints
+
+    def spy(*a, **k):
+        calls.append(k)
+        return count(*a, **k)
+
+    monkeypatch.setattr(utf8_decode, "count_codepoints", spy)
+    np.testing.assert_array_equal(enc.encode_bytes(data), want)
+    counted = count(torch.from_numpy(np.frombuffer(data, np.uint8).copy()), prefixes=True)
+    pieces = engine.byte_pieces(data, counted, CAP)
+    assert calls == [{"prefixes": True}] + [{"expect": k} for _, _, k in pieces[1:]]
+    cut = engine.byte_pieces
+    monkeypatch.setattr(engine, "byte_pieces",
+                        lambda *a: [(lo, hi, k + (i == 1)) for i, (lo, hi, k) in enumerate(cut(*a))])
+    with pytest.raises(RuntimeError):
+        enc.encode_bytes(data)

@@ -255,7 +255,8 @@ def test_stream_stages_of_one_encode(stream_corpus):
         staged = sum(rep[s]["seconds"] for s in STREAM_CALLER)
         assert staged + rep["encode"]["self_seconds"] == pytest.approx(rep["encode"]["seconds"], rel=0.01)
         assert rep["device_fetch"]["seconds"] >= rep["device_wait"]["seconds"] + rep["fetch_unpack"]["seconds"]
-        assert rep["counters"] == {"stream_positions": calls * bucket_size(cps.shape[0]),
+        assert rep["counters"] == {"stream_pieces": calls,
+                                   "stream_positions": calls * bucket_size(cps.shape[0]),
                                    "stream_table_rows": calls * enc.table.slots.shape[0],
                                    "stream_card_decoded_bytes": 0}
 

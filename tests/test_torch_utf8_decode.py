@@ -125,6 +125,77 @@ def test_the_bucket(data, extra):
     np.testing.assert_array_equal(out.numpy(), np.concatenate([want, np.zeros(extra, np.int32)]))
 
 
+def edge_text(seed: int, most: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    return bytes(rng.choice(np.frombuffer(EDGE + FOLLOW + "ж中▁𠀀".encode(), np.uint8),
+                            int(rng.integers(1, most))))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_lead_mask_and_tile_prefixes(seed):
+    """The rule on numpy bytes marks the bytes the decode keeps, and the
+    count's prefixes are the codepoints up to the end of each tile: on the
+    CPU a tile is one byte."""
+    data = edge_text(seed, 3 * 4096)
+    mask = ud.lead_mask(np.frombuffer(data, np.uint8))
+    assert mask.dtype == np.bool_
+    np.testing.assert_array_equal(mask, ud.lead_mask(as_tensor(data)).numpy())
+    counted = ud.count_codepoints(as_tensor(data), prefixes=True)
+    np.testing.assert_array_equal(counted.state.numpy(), check(data))
+    tile, prefixes = counted.tiles
+    assert tile == 1 and prefixes.tolist() == np.cumsum(mask).tolist()
+    assert prefixes[-1] == counted.n and ud.count_codepoints(as_tensor(data)).tiles is None
+
+
+def coarse(counted: ud.Counted, tile: int) -> ud.Counted:
+    """A CPU count's prefixes at `tile` bytes a tile, as the kernel's."""
+    _, every = counted.tiles
+    ends = np.minimum(np.arange(tile, every.shape[0] + tile, tile), every.shape[0]) - 1
+    return counted._replace(tiles=(tile, every[ends]))
+
+
+@pytest.mark.parametrize("tile", [1, 16, 4096])
+@pytest.mark.parametrize("seed", range(3))
+def test_offsets_at_any_tile(seed, tile):
+    """Offsets from a count's tile prefixes: the byte where each codepoint
+    begins, the codepoints before each byte, for ASCII and edge-byte text
+    (a tile where every byte leads, and one where not)."""
+    data = edge_text(seed, 3 * 4096) + make_corpus(5000, seed=seed) + edge_text(seed + 9, 300)
+    mask = ud.lead_mask(np.frombuffer(data, np.uint8))
+    at = ud.Offsets(coarse(ud.count_codepoints(as_tensor(data), prefixes=True), tile), data)
+    starts = np.flatnonzero(mask)
+    assert [at.byte_of(k) for k in range(starts.shape[0])] == starts.tolist()
+    before = np.concatenate([[0], np.cumsum(mask)])
+    assert [at.codepoints_before(b) for b in range(len(data) + 1)] == before.tolist()
+
+
+def test_an_expected_count():
+    """count_codepoints with the count the caller knows: equal, it passes
+    (on the CPU `check` has nothing left to read); different, it raises."""
+    data = as_tensor("ab ж\u00e9".encode() + b"\xe2")  # five codepoints, then a cut-off lead
+    counted = ud.count_codepoints(data, expect=5)
+    assert counted.n == 5 and ud.check(counted) is counted
+    with pytest.raises(RuntimeError):
+        ud.count_codepoints(data, expect=6)
+    with pytest.raises(RuntimeError):
+        ud.count_codepoints(data[:0], expect=1)
+
+
+@pytest.mark.parametrize("cut", ["ascii", "lead", "u2581"])
+def test_the_head_of_a_count(cut):
+    """The count of a document's first bytes, up to a byte no sequence
+    continues into, from the count of all of them: its bucket is the
+    head's own decode."""
+    sep = {"ascii": b" ", "lead": "中".encode(), "u2581": "▁".encode()}[cut]
+    data = "ab ж\u00e9".encode() + b"\xe2\x82" + sep + "x 中".encode()
+    at = data.index(sep, 7)
+    want = check(data[:at])
+    counted = ud.head(ud.count_codepoints(as_tensor(data)), at, want.shape[0])
+    assert counted.n == want.shape[0] and counted.data.shape[0] == at
+    np.testing.assert_array_equal(ud.write_codepoints(counted, 16).numpy()[: counted.n], want)
+    assert not ud.write_codepoints(counted, 16).numpy()[counted.n :].any()
+
+
 def test_the_wrappers_raise():
     t = as_tensor(b"abcd")
     for bad in (t.to(torch.int32), t.view(2, 2), t[::2], t.to(torch.int8)):

@@ -38,7 +38,8 @@
 // file (the 12,582,912-position bucket), 0.021 ms at 3.35 TB/s.  The
 // decode is ~30 integer operations a byte, far under the card's rate.
 // Launches a decode: one memset of the scan's status words, the count
-// kernel, a 4-byte copy to the host; then the write kernel.
+// kernel, a 4-byte copy to the host (and, for a document the engine cuts
+// into pieces, a copy of the tiles' prefixes); then the write kernel.
 
 #include <cuda_runtime.h>
 
@@ -212,6 +213,23 @@ extern "C" int wp_utf8_count(const void* bytes, long long n, void* scratch, void
   if (rc != cudaSuccess) return rc;
   return (int)cudaMemcpyAsync(total_host, total, sizeof(int), cudaMemcpyDeviceToHost, s);
 }
+
+// Copies the count's inclusive prefix of every tile of the n bytes counted
+// into `scratch` (the scan's status words, 64 bits each: the state in the
+// high half, the codepoints up to and including the tile in the low half)
+// to the host at `host` (tiles_of(n) words), on `stream`, after the count
+// kernel.  The whole-text engine reads them to cut a long document into
+// pieces.  Returns a cudaError_t.
+extern "C" int wp_utf8_prefixes(const void* scratch, long long n, void* host, void* stream) {
+  if (n <= 0 || !bytes_ok(n)) return cudaErrorInvalidValue;
+  // Scan::status(scratch): the status words after the 64-bit ticket.
+  const auto* status = static_cast<const unsigned long long*>(scratch) + 1;
+  return (int)cudaMemcpyAsync(host, status, tiles_of(n) * sizeof(unsigned long long),
+                              cudaMemcpyDeviceToHost, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes a tile of the count: the prefixes' stride.
+extern "C" long long wp_utf8_tile_bytes() { return kTile; }
 
 // Launches the write kernel on `stream`: the n_out codepoints of the n
 // bytes at `bytes`, counted by wp_utf8_count into `scratch`, into
